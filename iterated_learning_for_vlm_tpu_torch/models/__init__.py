@@ -1,0 +1,90 @@
+"""Model registry of the PyTorch port.
+
+Counterpart of ``iterated_learning_for_vlm_tpu/models/__init__.py``:
+``model_entry(config)`` takes the same nested config mapping (``type`` and
+``kwargs`` with ``image_encode`` / ``text_encode`` / ``fdt`` blocks and the
+tower-wide knobs) and returns an ``nn.Module`` whose parameters live on
+``device`` and are drawn from ``generator``. Only ``clip_fdt_vitb32`` is
+ported so far; the other JAX model types raise a ``KeyError`` that says so.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import torch
+
+from .fdt import CLIPFDT, FDTConfig, QueryModel
+from .layers import init_module_tree
+from .sparsemax import sparsemax, sparsemax_bisect
+from .text import TextConfig, TextTransformer, text_base
+from .vit import VisionConfig, VisionTransformer, vit_b32
+
+__all__ = [
+    "CLIPFDT", "FDTConfig", "QueryModel", "TextConfig", "TextTransformer",
+    "VisionConfig", "VisionTransformer", "model_entry", "sparsemax", "sparsemax_bisect",
+]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           "fp32": torch.float32}
+
+# model types of the JAX package that the port does not build yet
+UNPORTED = (
+    "clip_vitb32", "clip_vitb16", "clip_vitL14", "clip_vitL16", "clip_res50", "clip_res101",
+    "clip_swinB_v2", "clip_swinL", "clip_swinL_v2", "clip_swinMoE_B", "clip_swinMLP_B",
+    "clip_swin_yaml", "clip_fdt_vitb16", "clip_fdt_swinB_v2", "clip_vitb32_sp",
+    "clip_vitb32_auxilary", "clip_fdt_sp_vitb32", "declip_fdt_vitb32", "defilip_fdt_vitb32",
+)
+
+
+def _common(kwargs: Mapping[str, Any]):
+    """The JAX ``_common`` knob parsing: tower-wide knobs become per-tower
+    defaults. The TPU-only knobs still parse; the towers ignore them."""
+    img_kw = dict(kwargs.get("image_encode", {}))
+    txt_kw = dict(kwargs.get("text_encode", {}))
+    for dead in ("bpe_path", "text_encode_type", "text_model_utils"):
+        txt_kw.pop(dead, None)
+    dtype = _DTYPES[str(kwargs.get("dtype", "float32"))]
+    shared = {
+        "remat": bool(kwargs.get("remat", False)),
+        "use_flash": bool(kwargs.get("use_flash", False)),
+        "fused_attn": bool(kwargs.get("fused_attn", False)),
+        "fused_attn_group": int(kwargs.get("fused_attn_group", 2)),
+        "fused_attn_sample_group": int(kwargs.get("fused_attn_sample_group", 2)),
+        "fused_attn_bwd_fuse3": bool(kwargs.get("fused_attn_bwd_fuse3", False)),
+        "fused_attn_group_bwd": kwargs.get("fused_attn_group_bwd"),
+        "fused_attn_sample_group_bwd": kwargs.get("fused_attn_sample_group_bwd"),
+        "unroll": bool(kwargs.get("unroll", False)),
+        "attn_layout": str(kwargs.get("attn_layout", "bhqk")),
+    }
+    for kw in (img_kw, txt_kw):
+        for key, value in shared.items():
+            kw.setdefault(key, value)
+    return img_kw, txt_kw, dtype
+
+
+def clip_fdt_vitb32(device=None, **kw) -> CLIPFDT:
+    img_kw, txt_kw, dtype = _common(kw)
+    fdt_kw = dict(kw.get("fdt", {}))
+    fdt_kw.pop("use_allgather", None)
+    return CLIPFDT(vision_cfg=vit_b32(**img_kw), text_cfg=text_base(**txt_kw),
+                   fdt_cfg=FDTConfig(**fdt_kw), dtype=dtype, device=device)
+
+
+_REGISTRY = {"clip_fdt_vitb32": clip_fdt_vitb32}
+
+
+def model_entry(config, device=None, generator: Optional[torch.Generator] = None):
+    """``config``: a mapping with ``type`` and ``kwargs`` (reference schema).
+    Parameters are created on ``device`` and drawn from ``generator`` (a
+    generator on that device; default: seeded with 0)."""
+    mtype = config["type"] if isinstance(config, Mapping) else config.type
+    kwargs = dict(config.get("kwargs", {}))
+    if mtype not in _REGISTRY:
+        if mtype in UNPORTED:
+            raise KeyError(f"model type {mtype!r} is not ported to the PyTorch package "
+                           f"yet; ported: {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown model type {mtype!r}; ported: {sorted(_REGISTRY)}")
+    model = _REGISTRY[mtype](device=device, **kwargs)
+    if generator is None:
+        generator = torch.Generator(device=device or "cpu").manual_seed(0)
+    return init_module_tree(model, generator)
