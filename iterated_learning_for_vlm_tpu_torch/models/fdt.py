@@ -7,9 +7,9 @@ space, pooled codebook attention normalised by sparsemax (or softmax /
 sigmoid), and dual logit scales.
 
 ``QueryModel`` keeps both of the JAX branches with their own operation order:
-the fused branch (``use_fused_kernel`` with sparsemax, kernel K1) and the
-plain branch. The FDT temperature is a call argument, so a decay schedule
-changes it without touching the model.
+the fused branch (``use_fused_kernel`` with sparsemax, kernels K1-fwd and
+K1-bwd) and the plain branch; both are differentiable. The FDT temperature is
+a call argument, so a decay schedule changes it without touching the model.
 """
 from __future__ import annotations
 

@@ -7,9 +7,11 @@ through ``tools/torch_checkpoint.py``. Parameters are fp32; each layer
 computes in its ``dtype`` (bf16 for serving), as the flax modules do.
 
 - ``LayerNorm`` normalises in fp32 and casts back (eps 1e-5).
-- ``MultiheadAttention`` takes the fused kernel (``ops/fused_attention.py``)
-  when ``fused_attn`` is set and S <= 128, else the plain path; both have the
-  same numerics (fp32 logits and softmax, value product in the operand dtype).
+- ``MultiheadAttention`` takes the fused kernels (``ops/fused_attention.py``,
+  K2-fwd and K2-bwd through ``TinyAttention``, which gives ``in_proj_bias``
+  its gradient) when ``fused_attn`` is set and S <= 128, else the plain path;
+  both have the same numerics (fp32 logits and softmax, value product in the
+  operand dtype).
 - ``Transformer`` is a plain ``nn.ModuleList``: the JAX scan, remat and unroll
   are XLA compile strategies, so their knobs are accepted and ignored, as are
   the TPU tiling knobs of the fused attention kernel.

@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``ops/_common.py``: the one place that
 decides how kernels are compiled and called. At first use, ``nvcc`` compiles
-every ``csrc/*.cu`` for ``sm_90a`` into one shared library with a plain C
+every ``csrc/*.cu`` for ``sm_90a`` (one process per source, all started
+together) and links the objects into one shared library with a plain C
 interface under ``build/torch_kernels/`` at the checkout root (git-ignored),
 named by a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is reused. The library is loaded with ``ctypes``; nothing here
@@ -33,8 +34,8 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -65,26 +66,43 @@ def library_path() -> Path:
     return BUILD_DIR / f"libilvlm_kernels_{_digest()}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; wait for all, then raise on the first that
+    failed. Returns their output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile the kernel library unless a build of these exact sources exists.
 
-    Writes to a per-process temporary name and renames it into place, so two
-    processes building at once never load a half-written file. The compiler's
-    register/shared-memory report (``-Xptxas -v``) is kept beside the library
-    as ``<name>.log``."""
+    Writes to per-process temporary names and renames the library into place,
+    so two processes building at once never load a half-written file. The
+    compiler's register/shared-memory report (``-Xptxas -v``) is kept beside
+    the library as ``<name>.log``."""
     lib = library_path()
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
+    tag = f"{lib.stem}.{os.getpid()}"
+    nvcc = nvcc_path()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for obj, src in zip(objs, _sources())])
+        log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                           f"{res.stdout}\n{res.stderr}")
-    lib.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, lib)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return lib
 
 

@@ -1,4 +1,4 @@
-"""Fused multi-head self-attention for tiny sequences (kernel K2-fwd).
+"""Fused multi-head self-attention for tiny sequences (kernels K2-fwd, K2-bwd).
 
 Counterpart of ``iterated_learning_for_vlm_tpu/ops/fused_attention.py``. The
 CLIP towers attend over S=50 (vision) and S<=77 (text) tokens with head_dim
@@ -10,15 +10,25 @@ takes, so no head-split transposes or bias pass touch device memory.
 - :func:`attention_reference` is the plain PyTorch version, with the numerics
   of the JAX package's ``xla_attention_reference``: fp32 logits and softmax,
   the value product in the operand dtype.
-- :func:`tiny_attention_fwd` is the kernel wrapper. A CPU tensor takes the
-  plain version; a CUDA tensor launches ``csrc/tiny_attention_fwd.cu`` or
-  raises. ``tiny_attention_fwd.launches`` counts kernel launches.
+- :func:`attention_bwd_reference` is the plain version of the backward, with
+  the rounding of the JAX ``_bwd_kernel``: the softmax recomputed in fp32, p
+  rounded to bf16 for ``dv = p^T do``, ``dp = do v^T`` and
+  ``ds = p (dp - sum(dp p))`` in fp32, ds rounded to bf16 for
+  ``dq = ds k scale`` and ``dk = ds^T q scale``; fp32 sums, bf16 outputs.
+- :func:`tiny_attention_fwd` and :func:`tiny_attention_bwd` are the kernel
+  wrappers. A CPU tensor takes the plain version; a CUDA tensor launches
+  ``csrc/tiny_attention_fwd.cu`` / ``csrc/tiny_attention_bwd.cu`` or
+  raises. Each counts its kernel launches in ``.launches``.
+- :class:`TinyAttention` is the ``autograd.Function`` over them (the JAX
+  custom VJP ``_attend``): ``dqkv`` from K2-bwd and ``dbias3``, its fp32 sum
+  over (B, S) cast to the bias dtype.
 - :func:`fused_tiny_attention` keeps the JAX entry point's signature. The
   TPU tiling knobs (``head_group``, ``batch_block``, ``sample_group``, their
   ``*_bwd`` forms, ``bwd_fuse3``) still parse and mean nothing here. On the
   main path the JAX ``bias`` is only ever the constant causal mask, which the
   kernel takes as a flag: pass ``causal=True``. An arbitrary ``bias`` runs on
-  a CPU tensor (plain version) and is refused on a CUDA tensor.
+  a CPU tensor (plain version, plain autograd) and is refused on a CUDA
+  tensor.
 """
 from __future__ import annotations
 
@@ -55,26 +65,54 @@ def attention_reference(qkv: torch.Tensor, heads: int,
     return out.reshape(b, s, d)
 
 
+def attention_bwd_reference(qkv: torch.Tensor, heads: int, causal: bool,
+                            qkv_bias: Optional[torch.Tensor],
+                            dout: torch.Tensor) -> torch.Tensor:
+    """Plain backward of packed-QKV attention: ``dqkv [B, S, 3D]`` in qkv's
+    dtype, for the pre-bias ``qkv`` (``qkv_bias`` added in qkv's dtype)."""
+    b, s, three_d = qkv.shape
+    d = three_d // 3
+    hd = d // heads
+    scale = hd ** -0.5
+    dt = qkv.dtype
+    x = qkv if qkv_bias is None else qkv + qkv_bias.to(dt)
+    q, k, v = (t.reshape(b, s, heads, hd).float() for t in x.split(d, dim=-1))
+    do = dout.to(dt).reshape(b, s, heads, hd).float()
+    logits = torch.einsum("bqhc,bkhc->bhqk", q, k) * scale
+    if causal:
+        logits = logits + causal_bias(s, qkv.device)
+    p = torch.softmax(logits, dim=-1)
+    dv = torch.einsum("bhqk,bqhc->bkhc", p.to(dt).float(), do)
+    dp = torch.einsum("bqhc,bkhc->bhqk", do, v)
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dt).float()
+    dq = torch.einsum("bhqk,bkhc->bqhc", ds, k) * scale
+    dk = torch.einsum("bhqk,bqhc->bkhc", ds, q) * scale
+    return torch.cat([t.to(dt).reshape(b, s, d) for t in (dq, dk, dv)], dim=-1)
+
+
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
              ctypes.c_void_p)
+_BWD_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                 ctypes.c_void_p)
 
 
-def _check_cuda_args(qkv, heads, qkv_bias):
+def _check_cuda_args(qkv, heads, qkv_bias, name="tiny_attention_fwd"):
     if qkv.dim() != 3 or qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
-        raise ValueError(f"tiny_attention_fwd: qkv must be a contiguous [B, S, 3D] "
+        raise ValueError(f"{name}: qkv must be a contiguous [B, S, 3D] "
                          f"bfloat16 tensor, got {tuple(qkv.shape)} {qkv.dtype}")
     b, s, three_d = qkv.shape
     if three_d % (3 * heads) or three_d // (3 * heads) != HEAD_DIM:
-        raise ValueError(f"tiny_attention_fwd: head_dim must be {HEAD_DIM} "
+        raise ValueError(f"{name}: head_dim must be {HEAD_DIM} "
                          f"(3D={three_d}, heads={heads})")
     if not 1 <= s <= MAX_SEQ or not 1 <= b <= 65535:
-        raise ValueError(f"tiny_attention_fwd: needs 1 <= S <= {MAX_SEQ} and "
+        raise ValueError(f"{name}: needs 1 <= S <= {MAX_SEQ} and "
                          f"1 <= B <= 65535, got B={b} S={s}")
     if qkv_bias is not None and (
             qkv_bias.shape != (three_d,) or qkv_bias.dtype != qkv.dtype
             or qkv_bias.device != qkv.device or not qkv_bias.is_contiguous()):
-        raise ValueError(f"tiny_attention_fwd: qkv_bias must be a contiguous "
+        raise ValueError(f"{name}: qkv_bias must be a contiguous "
                          f"[{three_d}] {qkv.dtype} tensor on {qkv.device}")
 
 
@@ -107,6 +145,57 @@ def tiny_attention_fwd(qkv: torch.Tensor, heads: int, causal: bool = False,
 tiny_attention_fwd.launches = 0
 
 
+def tiny_attention_bwd(qkv: torch.Tensor, heads: int, causal: bool,
+                       qkv_bias: Optional[torch.Tensor], dout: torch.Tensor) -> torch.Tensor:
+    """``dqkv [B, S, 3D]`` of :func:`tiny_attention_fwd` for the output
+    gradient ``dout [B, S, D]`` (in qkv's dtype), recomputing the softmax."""
+    if qkv.device.type == "cpu":
+        return attention_bwd_reference(qkv, heads, causal, qkv_bias, dout)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"tiny_attention_bwd: unsupported device {qkv.device}")
+    _check_cuda_args(qkv, heads, qkv_bias, "tiny_attention_bwd")
+    b, s, three_d = qkv.shape
+    if (dout.shape != (b, s, three_d // 3) or dout.dtype != qkv.dtype
+            or dout.device != qkv.device or not dout.is_contiguous()):
+        raise ValueError(f"tiny_attention_bwd: dout must be a contiguous "
+                         f"[{b}, {s}, {three_d // 3}] {qkv.dtype} tensor on {qkv.device}, "
+                         f"got {tuple(dout.shape)} {dout.dtype} on {dout.device}")
+    dqkv = torch.empty_like(qkv)
+    with torch.cuda.device(qkv.device):
+        fn = _build.kernel("tiny_attention_bwd", _BWD_ARGTYPES)
+        status = fn(qkv.data_ptr(), None if qkv_bias is None else qkv_bias.data_ptr(),
+                    dout.data_ptr(), dqkv.data_ptr(), b, s, heads, int(bool(causal)),
+                    HEAD_DIM ** -0.5, torch.cuda.current_stream().cuda_stream)
+    _build.check(status, "tiny_attention_bwd")
+    tiny_attention_bwd.launches += 1
+    return dqkv
+
+
+tiny_attention_bwd.launches = 0
+
+
+class TinyAttention(torch.autograd.Function):
+    """``apply(qkv, heads, causal, qkv_bias)``: K2-fwd forward, K2-bwd
+    backward. Saves the pre-bias ``qkv`` and the bias; the causal mask gets
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, causal, qkv_bias):
+        ctx.save_for_backward(qkv, qkv_bias)
+        ctx.heads, ctx.causal = heads, causal
+        return tiny_attention_fwd(qkv, heads, causal=causal, qkv_bias=qkv_bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, qkv_bias = ctx.saved_tensors
+        dqkv = tiny_attention_bwd(qkv, ctx.heads, ctx.causal, qkv_bias,
+                                  g.to(qkv.dtype).contiguous())
+        if qkv_bias is None:
+            return dqkv, None, None, None
+        # the absorbed bias sees every (sample, position) once
+        return dqkv, None, None, dqkv.float().sum(dim=(0, 1)).to(qkv_bias.dtype)
+
+
 def fused_tiny_attention(
     qkv: torch.Tensor,
     heads: int,
@@ -121,15 +210,15 @@ def fused_tiny_attention(
     *,
     causal: bool = False,
 ) -> torch.Tensor:
-    """The JAX ``fused_tiny_attention`` entry point (forward only). The TPU
-    tiling knobs are accepted and ignored: the Hopper kernel has one block per
-    (sample, head) and no block-diagonal grouping. ``bias`` is an ``[S, S]``
-    additive logits bias; the kernel takes only the causal one, as
-    ``causal=True``."""
+    """The JAX ``fused_tiny_attention`` entry point, differentiable in
+    ``qkv`` and ``qkv_bias``. The TPU tiling knobs are accepted and ignored:
+    the Hopper kernels have one block per (sample, head) and no
+    block-diagonal grouping. ``bias`` is an ``[S, S]`` additive logits bias;
+    the kernels take only the causal one, as ``causal=True``."""
     del head_group, batch_block, sample_group, head_group_bwd
     del sample_group_bwd, bwd_fuse3
     if bias is None:
-        return tiny_attention_fwd(qkv, heads, causal=causal, qkv_bias=qkv_bias)
+        return TinyAttention.apply(qkv, heads, causal, qkv_bias)
     if qkv.device.type != "cpu" or causal:
         raise ValueError("fused_tiny_attention: the CUDA kernel takes no bias tensor; "
                          "pass causal=True for the causal mask")

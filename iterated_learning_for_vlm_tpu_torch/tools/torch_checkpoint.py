@@ -11,12 +11,21 @@ params through it unchanged, and this module goes the other way:
 - conv ``kernel`` HWIO -> OIHW;
 - LayerNorm ``norm/{scale,bias}`` -> ``weight``/``bias``; bare params as they are.
 
+Any tree with the params' structure crosses the same way: gradients, and the
+AdamW ``mu`` / ``nu`` moments. The per-leaf AdamW ``count`` is a scalar per
+leaf, also for a layer-stacked one; ``layers`` gives each tower's depth so
+that scalar goes to every layer.
+
+:func:`jax_path` goes back from a port name to its JAX path, so decisions the
+JAX package takes on flax names (weight-decay categories, freezing, the IL
+reset rules) are taken the same way for the port's parameters.
+
 Pure numpy: the params arrive as nested dicts of arrays (``np.asarray`` of
 each JAX leaf), so this needs neither jax nor flax.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -70,6 +79,24 @@ for _root, _side in (("img_query", "img_query_model"), ("txt_query", "txt_query_
     })
 
 
+_TOP_INV = {name: path for path, name in _TOP_MAP.items()}
+_BLOCK_INV = {name: path for path, name in _BLOCK_MAP.items()}
+_TOWERS_INV = {name: root for root, name in _TOWERS.items()}
+
+
+def jax_path(name: str) -> Tuple[str, ...]:
+    """The JAX param path of a port parameter; for a transformer block's
+    parameter, the path of the layer-stacked leaf (no layer index)."""
+    if name in _TOP_INV:
+        return _TOP_INV[name]
+    parts = name.split(".")
+    if len(parts) > 4 and parts[0] in _TOWERS_INV and parts[1:3] == ["transformer", "resblocks"]:
+        suffix = _BLOCK_INV.get(".".join(parts[4:]))
+        if suffix is not None:
+            return (_TOWERS_INV[parts[0]], "transformer", "resblocks") + suffix
+    raise KeyError(f"no JAX path for port parameter {name}")
+
+
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[tuple, np.ndarray]:
     out: Dict[tuple, np.ndarray] = {}
     for key, value in tree.items():
@@ -89,16 +116,26 @@ def _to_torch_layout(path: tuple, value: np.ndarray) -> np.ndarray:
     return value
 
 
-def state_dict_from_jax_params(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """CLIP-FDT JAX params (nested dicts of arrays) -> port ``state_dict``
-    arrays (float32, C-ordered copies). Raises on a leaf it cannot place, so a
-    param-tree change cannot be dropped silently."""
+def state_dict_from_jax_params(params: Mapping[str, Any],
+                               layers: Optional[Mapping[str, int]] = None
+                               ) -> Dict[str, np.ndarray]:
+    """CLIP-FDT JAX params, or a tree of the same structure (nested dicts of
+    arrays), -> port ``state_dict`` arrays (float32, C-ordered copies).
+    ``layers`` (JAX tower root -> depth, e.g. ``{"visual": 12, "text": 12}``)
+    is needed only for a tree of per-leaf scalars such as the AdamW count.
+    Raises on a leaf it cannot place, so a param-tree change cannot be
+    dropped silently."""
     out: Dict[str, np.ndarray] = {}
     for path, value in _flatten(params).items():
         if len(path) > 3 and path[1:3] == ("transformer", "resblocks") and path[0] in _TOWERS:
             suffix = _BLOCK_MAP.get(path[3:])
             if suffix is None:
                 raise KeyError(f"no torch name for JAX param {'/'.join(path)}")
+            if value.ndim == 0:  # one scalar for the whole stack
+                if layers is None or path[0] not in layers:
+                    raise KeyError(f"a scalar for the stacked leaf {'/'.join(path)} "
+                                   f"needs layers[{path[0]!r}]")
+                value = np.broadcast_to(value, (layers[path[0]],))
             for i, layer in enumerate(value):
                 out[f"{_TOWERS[path[0]]}.transformer.resblocks.{i}.{suffix}"] = (
                     _to_torch_layout(path, layer))

@@ -323,8 +323,8 @@ def test_codebook_kernel_argument_checks(kwargs, match):
 
 def test_port_imports_no_jax():
     """The port runs where jax is not installed: a fresh interpreter that
-    imports its models, ops and encoder must not load jax, flax or the JAX
-    package."""
+    imports its models, ops, encoder and training modules must not load jax,
+    flax or the JAX package."""
     code = (
         "import sys\n"
         "import iterated_learning_for_vlm_tpu_torch.models\n"
@@ -332,6 +332,9 @@ def test_port_imports_no_jax():
         "import iterated_learning_for_vlm_tpu_torch.ops.fused_attention\n"
         "import iterated_learning_for_vlm_tpu_torch.eval.encode\n"
         "import iterated_learning_for_vlm_tpu_torch.tools.torch_checkpoint\n"
+        "import iterated_learning_for_vlm_tpu_torch.train.il\n"
+        "import iterated_learning_for_vlm_tpu_torch.train.schedule\n"
+        "import iterated_learning_for_vlm_tpu_torch.train.step\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'iterated_learning_for_vlm_tpu'))\n"
         "assert not bad, bad\n"
