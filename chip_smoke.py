@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: CLIP-FDT ViT-B/32 serving and training on one GPU.
+"""Chip smoke of the PyTorch/CUDA port: CLIP-FDT and CLIP serving and training on one GPU.
 
 Run from the repository root on a machine with an NVIDIA Hopper GPU:
 
@@ -20,6 +20,10 @@ and depth, bf16, both kernels on, random weights from seed 0),
 3b. backward kernels: K2-bwd (dqkv and dbias3 through autograd of
    ``fused_tiny_attention``) and K1-bwd dq / dsd (fed the forward kernel's
    amax on both sides) the same way;
+3c. flash attention: K3-fwd, and K3-bwd through autograd of
+   ``flash_attention``, against their plain versions, q/k/v taken as the
+   column blocks of one packed [B, S, 3D] tensor, at the vision (S=50), text
+   (S=77 and 32, causal) and ViT-B/16 (S=197) shapes;
 4. serve: reset the launch counters, encode 256 images and 256 texts at the
    ctx-32 and ctx-77 buckets, read the counters; embeddings must be finite,
    unit-norm, match the plain path within a cosine bound, and every forward
@@ -38,6 +42,18 @@ and depth, bf16, both kernels on, random weights from seed 0),
 8. train timing: pairs/s at batch 256, ctx 32 and ctx 77, kernel path against
    plain path, the peak memory of a step and a ``torch.profiler`` table of
    one kernel-path step.
+
+Then the CLIP-FDT models are freed and the baseline CLIP runs
+(``configs/clip_cc3m.yaml``'s model block, bf16, seed 0), built three ways
+from the same weights: the flash route (``use_flash: true``, kernels K3), the
+K2 route (as shipped, ``fused_attn: true``) and the plain route (neither):
+
+9. CLIP ViT-B/32: serve 256 images and 256 texts at ctx 32 and 77 on the
+   flash route (36 K3-fwd launches, nothing else), one train step at batch
+   256, ctx 32 (24 K3-fwd, 24 K3-bwd, nothing else) against the plain route,
+   pairs/s and embeds/s of all three routes, and a profile of a flash step;
+10. CLIP ViT-B/16 (S=197, which only K3 takes): one train step on the flash
+   route (24 / 24 launches) against the plain route, and one paired time.
 
 Any failure exits non-zero. The line before the last is the kernels JSON,
 the last ``{"ok": true, "device": {...}}``. All numbers also go to
@@ -69,10 +85,17 @@ KERNELS = {
                               JAX_OPS + "codebook_attention.py:150"),
     "tiny_attention_fwd": (CSRC + "tiny_attention_fwd.cu", JAX_OPS + "fused_attention.py:135"),
     "tiny_attention_bwd": (CSRC + "tiny_attention_bwd.cu", JAX_OPS + "fused_attention.py:173"),
+    "flash_attention_fwd": (CSRC + "flash_attention_fwd.cu", JAX_OPS + "flash_attention.py:29"),
+    "flash_attention_bwd": (CSRC + "flash_attention_bwd.cu", JAX_OPS + "flash_attention.py:45"),
 }
 # launches of one train step: 12 layers x 2 towers of K2 each way, one K1 per tower
 TRAIN_LAUNCHES = {"tiny_attention_fwd": 24, "tiny_attention_bwd": 24, "codebook_pool_fwd": 2,
-                  "codebook_pool_bwd_dq": 2, "codebook_pool_bwd_dsd": 2}
+                  "codebook_pool_bwd_dq": 2, "codebook_pool_bwd_dsd": 2,
+                  "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+# the CLIP flash route: K3 in every layer of both towers, and no other kernel
+CLIP_SERVE_LAUNCHES = {name: 0 for name in TRAIN_LAUNCHES} | {"flash_attention_fwd": 36}
+CLIP_TRAIN_LAUNCHES = {name: 0 for name in TRAIN_LAUNCHES} | {"flash_attention_fwd": 24,
+                                                              "flash_attention_bwd": 24}
 # K2 output: bf16 rounding of fp32 sums taken in another order (and p rounded
 # to bf16 before p @ v on both sides): two bf16 ulps at |out| <= 2, plus 1%.
 ATTN_ATOL, ATTN_RTOL = 2e-2, 1e-2
@@ -94,6 +117,10 @@ BIAS_GRAD_ATOL = 4e-3
 # K1-bwd dq/dsd: the same routed products summed in fp32 in another order,
 # rounded to bf16: one bf16 ulp (<= 2^-7 relative) plus fp32 noise near 0.
 POOL_BWD_ATOL, POOL_BWD_RTOL = 1e-4, 8e-3
+# K3-fwd and K3-bwd: both sides form the same fp32 values (p and ds unrounded)
+# in another summation order and round once to bf16: one bf16 ulp of |ref|
+# (<= 2^-7 relative), plus 1e-3 for fp32 noise on values near 0.
+FLASH_ATOL, FLASH_RTOL = 1e-3, 2.0 ** -7
 # Train step, kernel path vs plain path: bf16 towers that round the attention
 # and the codebook product at other places; the loss is ~ln(256) = 5.5. On an
 # H100 either bf16 path's vision-tower gradients lie at cosine 0.986-0.993
@@ -113,6 +140,23 @@ REDRAWN = (".ln_", "q_map.0.", "q_map.3.", "out_proj.", "c_fc.", "c_proj.", "tex
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def clip_config(route: str, mtype: str = "clip_vitb32") -> dict:
+    """``configs/clip_cc3m.yaml``'s model block; ``route`` "k2" is the shipped
+    form (``fused_attn: true``), "flash" adds ``use_flash: true`` (which
+    turns the fused route off), "plain" has neither."""
+    fused = route != "plain"
+    kw = {
+        "dtype": "bfloat16", "unroll": True,
+        "image_encode": {"fused_attn": fused, "embed_dim": 512},
+        "text_encode": {"embed_dim": 512, "fused_attn": fused, "fused_attn_group": 2,
+                        "fused_attn_sample_group": 4},
+        "clip": {"use_allgather": True},
+    }
+    if route == "flash":
+        kw["use_flash"] = True
+    return {"type": mtype, "kwargs": kw}
 
 
 def model_config(fused: bool) -> dict:
@@ -298,6 +342,61 @@ def pool_bwd_cases(dev, name, b, t, with_keep):
     return rows
 
 
+# -- phase 3c: flash attention against its plain versions --------------------
+def flash_case(dev, name, b, s, h, causal):
+    """K3-fwd, and K3-bwd through autograd of ``flash_attention``, against
+    their plain versions; q, k, v are the column blocks of one packed
+    [B, S, 3D] tensor, as the towers pass them. Returns the two rows."""
+    from iterated_learning_for_vlm_tpu_torch.ops import flash_attention as fl
+    from iterated_learning_for_vlm_tpu_torch.ops.fused_attention import causal_bias
+
+    g = torch.Generator(device=dev).manual_seed(s + 2000)
+    d = 64 * h
+    qkv = torch.randn(b, s, 3 * d, generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn(b, s, h, 64, generator=g, device=dev).to(torch.bfloat16)
+    bias = causal_bias(s, dev) if causal else None
+
+    def heads(t):
+        return [x.reshape(b, s, h, 64) for x in t.split(d, dim=-1)]
+
+    q, k, v = heads(qkv)
+    rows = []
+    got = fl.flash_attention_fwd(q, k, v, bias)
+    ref = fl.flash_attention_reference(q, k, v, bias)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs()
+    ok = bool(torch.all(err <= FLASH_ATOL + FLASH_RTOL * ref.float().abs()))
+    del got, ref
+    plain_ms, ms = paired_ms(lambda: fl.flash_attention_reference(q, k, v, bias),
+                             lambda: fl.flash_attention_fwd(q, k, v, bias))
+    rows.append({"case": name, "max_abs_err": err.max().item(), "atol": FLASH_ATOL,
+                 "rtol": FLASH_RTOL, "within_tol": ok, "ms": ms, "plain_ms": plain_ms})
+    log(f"kernel flash_attention_fwd {name}: max_abs_err={rows[-1]['max_abs_err']:.3e} "
+        f"(tol {FLASH_ATOL} + 2^-7*|ref|) ok={ok} ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    check(ok, f"flash_attention_fwd {name} disagrees with flash_attention_reference")
+
+    qkv_k = qkv.clone().requires_grad_()
+    fl.flash_attention(*heads(qkv_k), bias).backward(dout)
+    refs = fl.flash_attention_bwd_reference(q, k, v, bias, dout)
+    torch.cuda.synchronize()
+    errs = [(got.reshape(ref.shape).float() - ref.float()).abs().max().item()
+            for got, ref in zip(heads(qkv_k.grad), refs)]
+    ok = all(bool(torch.all((got.reshape(ref.shape).float() - ref.float()).abs()
+                            <= FLASH_ATOL + FLASH_RTOL * ref.float().abs()))
+             for got, ref in zip(heads(qkv_k.grad), refs))
+    del qkv_k, refs
+    plain_ms, ms = paired_ms(lambda: fl.flash_attention_bwd_reference(q, k, v, bias, dout),
+                             lambda: fl.flash_attention_bwd(q, k, v, bias, dout))
+    rows.append({"case": name, "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
+                 "atol": FLASH_ATOL, "rtol": FLASH_RTOL, "within_tol": ok, "ms": ms,
+                 "plain_ms": plain_ms})
+    log(f"kernel flash_attention_bwd {name} (autograd of flash_attention): max_abs_err "
+        f"dq/dk/dv={errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {FLASH_ATOL} + 2^-7*|ref|) "
+        f"ok={ok} ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    check(ok, f"flash_attention_bwd {name} disagrees with flash_attention_bwd_reference")
+    return rows
+
+
 # -- phase 4: the serving path ----------------------------------------------
 def make_texts(rng, n, ctx, max_len):
     """Token rows SOT, random ids, EOT (the highest id), zero pads, with the
@@ -324,18 +423,20 @@ def reset_counters(*fns) -> None:
         fn.launches = 0
 
 
-def make_trainer(model):
+def make_trainer(model, is_fdt: bool = True):
     """The bench trainer: masked AdamW at the CC3M config's lr schedule, weight
-    decay and logit-scale clamp, on a fresh state."""
+    decay and logit-scale clamp, on a fresh state (CLIP: no codebook, and the
+    baseline config's schedule)."""
     from iterated_learning_for_vlm_tpu_torch.train import optim, schedule
     from iterated_learning_for_vlm_tpu_torch.train.step import make_train_step
     from iterated_learning_for_vlm_tpu_torch.train.train_state import TrainState
 
     params = dict(model.named_parameters())
-    state = TrainState.create(params, optim.adamw_init(params),
-                              optim.trainable_mask_tree(params), params["space_dict"])
-    step = make_train_step(model, schedule.cosine(5e-5, 5e-4, 0.0, 500, 80000, reset_steps=6000),
-                           optim.build_wd_tree(params, 0.1, PCONFIG), is_fdt=True,
+    state = TrainState.create(params, optim.adamw_init(params), optim.trainable_mask_tree(params),
+                              params["space_dict"] if is_fdt else None)
+    lr = (schedule.cosine(5e-5, 5e-4, 0.0, 500, 80000, reset_steps=6000) if is_fdt
+          else schedule.cosine(5e-5, 5e-4, 0.0, 500, 72000))
+    step = make_train_step(model, lr, optim.build_wd_tree(params, 0.1, PCONFIG), is_fdt=is_fdt,
                            grad_clip_type="logit_scale_param_value", grad_clip_value=3.0,
                            grad_clip_max_value=6.0)
     return params, state, step
@@ -348,13 +449,13 @@ def train_batch(dev, rng, ctx):
             "pad_mask": torch.from_numpy(pad).to(dev)}
 
 
-def compare_grads(params_k, params_p):
+def compare_grads(params_k, params_p, unread=UNREAD):
     """Per-parameter gradient agreement of the two paths: cosine, or the
     relative error of a one-element parameter; exact None on unread leaves."""
     worst, rows = 1.0, {}
     for name, pk in params_k.items():
         gk, gp = pk.grad, params_p[name].grad
-        if name.startswith(UNREAD) or not pk.requires_grad:
+        if name.startswith(unread) or not pk.requires_grad:
             check(gk is None and gp is None, f"{name} has a gradient on a path")
             continue
         check(gk is not None and gp is not None, f"{name} has no gradient")
@@ -372,12 +473,13 @@ def compare_grads(params_k, params_p):
     return worst, rows
 
 
-def train_phase(model, plain, batch, counted):
+def train_phase(model, plain, batch, counted, expected=TRAIN_LAUNCHES, is_fdt=True,
+                label="train step"):
     """One train step on each path from the same weights and state; the
     kernel path's launches counted from 0. Returns the launches, the report
-    and the plain trainer (state, step) for the timing."""
-    params_k, state_k, step_k = make_trainer(model)
-    params_p, state_p, step_p = make_trainer(plain)
+    and both trainers (state, step), kernel path first, for the timing."""
+    params_k, state_k, step_k = make_trainer(model, is_fdt)
+    params_p, state_p, step_p = make_trainer(plain, is_fdt)
     sync()
     reset_counters(*counted.values())
     metrics_k = step_k(state_k, batch, TRAIN_TEMPERATURE)
@@ -385,19 +487,28 @@ def train_phase(model, plain, batch, counted):
     launches = {name: fn.launches for name, fn in counted.items()}
     metrics_p = step_p(state_p, batch, TRAIN_TEMPERATURE)
     loss_k, loss_p = metrics_k["loss"].item(), metrics_p["loss"].item()
-    log(f"train step bs{BATCH} ctx32: loss kernel path {loss_k:.6f}, plain path {loss_p:.6f} "
+    log(f"{label} bs{BATCH} ctx32: loss kernel path {loss_k:.6f}, plain path {loss_p:.6f} "
         f"(|diff| bound {TRAIN_LOSS_ATOL}); launches {launches}")
     check(np.isfinite(loss_k) and abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL,
-          "train loss disagrees with the plain path")
-    check(launches == TRAIN_LAUNCHES, f"train step launches {launches}, expected {TRAIN_LAUNCHES}")
-    worst_cos, grad_rows = compare_grads(params_k, params_p)
-    log(f"train grads: {len(grad_rows)} parameters compared, min cosine {worst_cos:.6f} "
+          f"{label} loss disagrees with the plain path")
+    check(launches == expected, f"{label} launches {launches}, expected {expected}")
+    worst_cos, grad_rows = compare_grads(params_k, params_p, UNREAD if is_fdt else ())
+    log(f"{label} grads: {len(grad_rows)} parameters compared, min cosine {worst_cos:.6f} "
         f"(bound {GRAD_MIN_COS}); logit_scale rel err "
-        f"{grad_rows['logit_scale']['rel_err']:.3e} (bound {SCALAR_GRAD_RTOL}); "
-        f"unread leaves exactly zero on both paths")
+        f"{grad_rows['logit_scale']['rel_err']:.3e} (bound {SCALAR_GRAD_RTOL})"
+        + ("; unread leaves exactly zero on both paths" if is_fdt else ""))
     report = {"loss": loss_k, "plain_loss": loss_p, "launches": launches,
               "min_grad_cos": worst_cos, "grads": grad_rows}
-    return launches, report, (state_p, step_p)
+    return launches, report, (state_k, step_k), (state_p, step_p)
+
+
+def turns_ms(fns: dict, iters: int) -> dict:
+    """Mean device ms per call of each function, timed in turns forward and
+    back (a, b, c, c, b, a) so drift hits them alike."""
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(reversed(fns)):
+        times[name].append(cuda_ms(fns[name], iters))
+    return {name: sum(t) / len(t) for name, t in times.items()}
 
 
 def il_phase(model, batch):
@@ -448,6 +559,110 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
+# -- phases 9-10: the baseline CLIP, flash route against the K2 and plain routes
+def clip_serve_phase(encs, images, texts, counted):
+    """Phase 9's serving: the flash route's launches, counted from 0, and its
+    embeddings against the plain route's."""
+    def serve(e):
+        return (e.encode_images(images), *(e.encode_texts_tokens(t, p) for t, p in texts))
+
+    serve(encs["flash"])  # first call: library set-up, outside the counted run
+    sync()
+    reset_counters(*counted.values())
+    outs = serve(encs["flash"])
+    sync()
+    launches = {name: fn.launches for name, fn in counted.items()}
+    log(f"CLIP serve: {BATCH} images + {BATCH} texts @ctx32 + {BATCH} texts @ctx77 on the "
+        f"flash route; launches {launches}")
+    check(launches == CLIP_SERVE_LAUNCHES,
+          f"CLIP serve launches {launches}, expected {CLIP_SERVE_LAUNCHES}")
+    rows = {}
+    for name, got, ref in zip(("image", "text_ctx32", "text_ctx77"), outs, serve(encs["plain"])):
+        check(got.shape == (BATCH, 512), f"CLIP {name} embeddings have shape {got.shape}")
+        check(bool(np.isfinite(got).all()), f"CLIP {name} embeddings are not finite")
+        norm_err = float(np.abs(np.linalg.norm(got, axis=-1) - 1).max())
+        cos = float(cosines(got, ref).min())
+        rows[name] = {"min_cos_vs_plain": cos, "max_norm_err": norm_err}
+        log(f"CLIP serve {name}: finite, |norm-1| max {norm_err:.2e} (tol {NORM_ATOL}), "
+            f"min cosine vs plain route {cos:.6f} (bound {EMBED_MIN_COS})")
+        check(norm_err <= NORM_ATOL, f"CLIP {name} embeddings are not unit-norm")
+        check(cos >= EMBED_MIN_COS, f"CLIP {name} embeddings disagree with the plain route")
+    return launches, {"launches": launches, **rows}
+
+
+def clip_phases(dev, rng, counted, report):
+    """Phases 9 and 10. Returns the flash route's serving and train-step
+    launches (ViT-B/32)."""
+    from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder
+    from iterated_learning_for_vlm_tpu_torch.models import model_entry
+    from torch.profiler import ProfilerActivity, profile
+
+    def build(route, mtype="clip_vitb32"):
+        return model_entry(clip_config(route, mtype), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED))
+
+    # 9. CLIP ViT-B/32, three routes from the same weights
+    models = {route: build(route) for route in ("flash", "k2", "plain")}
+    for route in ("k2", "plain"):
+        models[route].load_state_dict(models["flash"].state_dict())
+    encs = {r: TorchEncoder(m, batch_size=BATCH, text_buckets=(16, 32)) for r, m in models.items()}
+    images = rng.standard_normal((BATCH, 224, 224, 3), dtype=np.float32)
+    texts = (make_texts(rng, BATCH, 77, 32), make_texts(rng, BATCH, 77, 77))
+    serve_launches, report["clip_serve"] = clip_serve_phase(encs, images, texts, counted)
+
+    x_img = torch.from_numpy(images).to(dev)
+    t77, p77 = (torch.from_numpy(a).to(dev) for a in texts[1])
+    serve_timing = {}
+    for name, fn in (("image", lambda e: e.image_batch(x_img)),
+                     ("text_ctx77", lambda e: e.text_batch(t77, p77))):
+        ms = turns_ms({r: (lambda e=e: fn(e)) for r, e in encs.items()}, iters=10)
+        serve_timing[name] = {r: {"ms": t, "embeds_per_s": BATCH / t * 1e3} for r, t in ms.items()}
+        log(f"timing CLIP {name} bs{BATCH}: " + ", ".join(
+            f"{r} route {t:.3f} ms ({BATCH / t * 1e3:.1f} embeds/s)" for r, t in ms.items()))
+    report["clip_serve_timing"] = serve_timing
+    del encs, x_img
+
+    batch32, batch77 = train_batch(dev, rng, 32), train_batch(dev, rng, 77)
+    train_launches, report["clip_train_step"], flash_tr, plain_tr = train_phase(
+        models["flash"], models["plain"], batch32, counted, CLIP_TRAIN_LAUNCHES, is_fdt=False,
+        label="CLIP B/32 train step")
+    trainers = {"flash": flash_tr, "k2": make_trainer(models["k2"], is_fdt=False)[1:],
+                "plain": plain_tr}
+    train_timing = {}
+    for ctx, batch in ((32, batch32), (77, batch77)):
+        ms = turns_ms({r: (lambda st=st, fn=fn: fn(st, batch, 0.0))
+                       for r, (st, fn) in trainers.items()}, iters=10)
+        train_timing[f"ctx{ctx}"] = {r: {"ms": t, "pairs_per_s": BATCH / t * 1e3}
+                                     for r, t in ms.items()}
+        log(f"timing CLIP B/32 train step bs{BATCH} ctx{ctx}: " + ", ".join(
+            f"{r} route {t:.3f} ms ({BATCH / t * 1e3:.1f} pairs/s)" for r, t in ms.items()))
+    report["clip_train_timing"] = train_timing
+    state_f, step_f = trainers["flash"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_f(state_f, batch32, 0.0)
+        sync()
+    log("profile CLIP B/32 flash-route train step ctx32:\n" + prof.key_averages().table(
+        sort_by="cuda_time_total", row_limit=25, max_name_column_width=60))
+    del models, trainers, flash_tr, plain_tr, state_f, step_f, batch77
+    torch.cuda.empty_cache()
+
+    # 10. CLIP ViT-B/16: S=197 in the vision tower, which only K3 takes
+    fast, plain = build("flash", "clip_vitb16"), build("plain", "clip_vitb16")
+    plain.load_state_dict(fast.state_dict())
+    b16_launches, report["clip_b16_train_step"], (state_f, step_f), (state_p, step_p) = (
+        train_phase(fast, plain, batch32, counted, CLIP_TRAIN_LAUNCHES, is_fdt=False,
+                    label="CLIP B/16 train step"))
+    plain_ms, ms = paired_ms(lambda: step_p(state_p, batch32, 0.0),
+                             lambda: step_f(state_f, batch32, 0.0), iters=3)
+    report["clip_b16_train_timing"] = {"ms": ms, "plain_ms": plain_ms,
+                                       "pairs_per_s": BATCH / ms * 1e3,
+                                       "plain_pairs_per_s": BATCH / plain_ms * 1e3}
+    log(f"timing CLIP B/16 train step bs{BATCH} ctx32: flash route {ms:.3f} ms "
+        f"({BATCH / ms * 1e3:.1f} pairs/s), plain route {plain_ms:.3f} ms "
+        f"({BATCH / plain_ms * 1e3:.1f} pairs/s)")
+    return serve_launches, train_launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -461,6 +676,7 @@ def main() -> int:
     from iterated_learning_for_vlm_tpu_torch.models import model_entry
     from iterated_learning_for_vlm_tpu_torch.ops import _build
     from iterated_learning_for_vlm_tpu_torch.ops import codebook_attention as cb
+    from iterated_learning_for_vlm_tpu_torch.ops import flash_attention as fl
     from iterated_learning_for_vlm_tpu_torch.ops import fused_attention as fa
 
     check("jax" not in sys.modules, "the port imported jax")
@@ -501,6 +717,14 @@ def main() -> int:
     k1b = (pool_bwd_cases(dev, f"image B={BATCH} T=49", BATCH, 49, False)
            + pool_bwd_cases(dev, f"text B={BATCH} T=32 pads", BATCH, 32, True))
     report["kernel_checks"].update({"tiny_attention_bwd": k2b, "codebook_pool_bwd": k1b})
+
+    # 3c. flash attention against its plain versions, the tower shapes
+    k3 = [flash_case(dev, f"vision B={BATCH} S=50 H=12", BATCH, 50, 12, False),
+          flash_case(dev, f"text B={BATCH} S=77 H=8 causal", BATCH, 77, 8, True),
+          flash_case(dev, f"text B={BATCH} S=32 H=8 causal", BATCH, 32, 8, True),
+          flash_case(dev, f"ViT-B/16 vision B={BATCH} S=197 H=12", BATCH, 197, 12, False)]
+    k3f, k3b = [r[0] for r in k3], [r[1] for r in k3]
+    report["kernel_checks"].update({"flash_attention_fwd": k3f, "flash_attention_bwd": k3b})
 
     # 4. the serving path, kernel path and plain path from the same weights
     model = model_entry(model_config(True), device=dev,
@@ -606,10 +830,12 @@ def main() -> int:
                "tiny_attention_bwd": fa.tiny_attention_bwd,
                "codebook_pool_fwd": cb.codebook_pool_fwd,
                "codebook_pool_bwd_dq": cb.codebook_pool_bwd_dq,
-               "codebook_pool_bwd_dsd": cb.codebook_pool_bwd_dsd}
+               "codebook_pool_bwd_dsd": cb.codebook_pool_bwd_dsd,
+               "flash_attention_fwd": fl.flash_attention_fwd,
+               "flash_attention_bwd": fl.flash_attention_bwd}
     batch32 = train_batch(dev, rng, 32)
     batch77 = train_batch(dev, rng, 77)
-    train_launches, report["train_step"], (state_p, step_p) = train_phase(
+    train_launches, report["train_step"], _, (state_p, step_p) = train_phase(
         model, plain, batch32, counted)
 
     # 7. the IL cycle on the kernel path
@@ -639,6 +865,11 @@ def main() -> int:
     log("profile train step ctx32:\n" + prof.key_averages().table(
         sort_by="cuda_time_total", row_limit=25, max_name_column_width=60))
 
+    # 9-10. the baseline CLIP, after the CLIP-FDT models are freed
+    del model, plain, state_k, step_k, state_p, step_p, batch32, batch77, prof
+    torch.cuda.empty_cache()
+    clip_serve_launches, clip_train_launches = clip_phases(dev, rng, counted, report)
+
     report["seconds_total"] = time.perf_counter() - t_start
     out_dir = REPO / "build"
     out_dir.mkdir(exist_ok=True)
@@ -646,17 +877,22 @@ def main() -> int:
 
     checks = {"codebook_pool_fwd": k1, "tiny_attention_fwd": k2, "tiny_attention_bwd": k2b,
               "codebook_pool_bwd_dq": [r for r in k1b if r["entry"] == "codebook_pool_bwd_dq"],
-              "codebook_pool_bwd_dsd": [r for r in k1b if r["entry"] == "codebook_pool_bwd_dsd"]}
+              "codebook_pool_bwd_dsd": [r for r in k1b if r["entry"] == "codebook_pool_bwd_dsd"],
+              "flash_attention_fwd": k3f, "flash_attention_bwd": k3b}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rows = checks[name]
+        # each kernel's launches in the train step of the path that runs it:
+        # CLIP-FDT (phase 6) for K1 and K2, the CLIP flash route (phase 9) for K3
+        flash = name.startswith("flash")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": train_launches[name],
+                        "launches": (clip_train_launches if flash else train_launches)[name],
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
                         "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
                         "shape": rows[0]["case"]})
-        if name in launches:
-            kernels[-1]["launches_serving"] = launches[name]
+        serving = clip_serve_launches if flash else launches
+        if serving.get(name):
+            kernels[-1]["launches_serving"] = serving[name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

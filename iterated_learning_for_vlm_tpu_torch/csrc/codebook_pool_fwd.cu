@@ -25,11 +25,11 @@
 // ties. The loads are not yet overlapped with the math (no cp.async/TMA
 // pipeline, no wgmma); that is the next step once the H100 times show where it
 // stands.
-#include <stdint.h>
-
 #include "common.cuh"
 
 namespace {
+
+using ilvlm::mma_bf16_16816;
 
 constexpr int kWarps = 8;
 constexpr int kBlockN = kWarps * 16;  // codes per block
@@ -39,15 +39,6 @@ constexpr int kMaxTokens = 128;
 constexpr int kMaxMTiles = kMaxTokens / 16;
 constexpr int kVec = 8;               // bf16 per 16-byte load
 constexpr int kVecPerRow = kBlockK / kVec;
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __global__ void __launch_bounds__(kWarps * 32)
 codebook_pool_fwd_kernel(const __nv_bfloat16* __restrict__ q,

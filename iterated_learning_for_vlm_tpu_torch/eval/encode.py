@@ -1,9 +1,11 @@
 """Batched encoders: the serving path of the PyTorch port.
 
 Counterpart of ``iterated_learning_for_vlm_tpu/eval/encode.py``'s
-``JitEncoder`` for CLIP-FDT models: fixed-size batches (a partial batch is
-padded, its padding dropped from the result), text context buckets, the FDT
-temperature as a run-time float, and L2 normalisation with eps 1e-10.
+``JitEncoder`` for CLIP-FDT and CLIP models: fixed-size batches (a partial
+batch is padded, its padding dropped from the result), text context buckets,
+the FDT temperature as a run-time float, and L2 normalisation with eps 1e-10
+in fp32. CLIP-FDT encodes to its codebook features (``extract_*_sd_ft``),
+CLIP to its tower embeddings (``encode_image``, ``encode_text(...)["embed"]``).
 
 ``image_batch`` and ``text_batch`` take and return device tensors (one fixed
 batch); ``encode_images`` / ``encode_texts_tokens`` take host numpy arrays of
@@ -33,12 +35,14 @@ def pick_context_bucket(pad_mask, buckets) -> Optional[int]:
 
 
 class TorchEncoder:
-    """Encoder over a CLIP-FDT model (the baseline CLIP is not ported yet)."""
+    """Encoder over a CLIP-FDT model (one with an FDT config) or a CLIP model,
+    which has no temperature."""
 
     def __init__(self, model, tokenizer=None, batch_size: int = 64, normalize: bool = True,
                  text_buckets: Optional[Sequence[int]] = (16, 32),
                  sd_temperature: Optional[float] = None):
         self.model = model.eval()
+        self.is_fdt = hasattr(model, "fdt_cfg")
         self.device = next(model.parameters()).device
         self.tokenizer = None if tokenizer is None else self._checked(tokenizer)
         self.batch_size = batch_size
@@ -47,8 +51,9 @@ class TorchEncoder:
         self.text_buckets = tuple(sorted(
             {int(b) for b in (text_buckets or ()) if int(b) < self.context_length}
             | {self.context_length}))
-        self.sd_temperature = float(sd_temperature if sd_temperature is not None
-                                    else model.fdt_cfg.sd_temperature)
+        if sd_temperature is None:
+            sd_temperature = model.fdt_cfg.sd_temperature if self.is_fdt else 0.0
+        self.sd_temperature = float(sd_temperature)
 
     def _checked(self, tokenizer):
         """An out-of-range token id gathers garbage: refuse a tokenizer whose
@@ -59,28 +64,34 @@ class TorchEncoder:
                              f"embedding table ({self.model.text_cfg.vocab_size})")
         return tokenizer
 
-    @staticmethod
-    def _normalize(emb: torch.Tensor) -> torch.Tensor:
-        return emb / (torch.linalg.vector_norm(emb, dim=-1, keepdim=True) + 1e-10)
+    def _finish(self, emb: torch.Tensor, normalize: Optional[bool]) -> torch.Tensor:
+        emb = emb.float()
+        if self.normalize if normalize is None else normalize:
+            emb = emb / (torch.linalg.vector_norm(emb, dim=-1, keepdim=True) + 1e-10)
+        return emb
 
     @torch.inference_mode()
     def image_batch(self, images: torch.Tensor, normalize: Optional[bool] = None):
-        """One batch of NHWC images on the model's device -> [B, sd_dim] fp32."""
-        _, emb = self.model.extract_img_sd_ft(images, temperature=self.sd_temperature)
-        nrm = self.normalize if normalize is None else normalize
-        return self._normalize(emb) if nrm else emb
+        """One batch of NHWC images on the model's device -> [B, E] fp32."""
+        if self.is_fdt:
+            _, emb = self.model.extract_img_sd_ft(images, temperature=self.sd_temperature)
+        else:
+            emb = self.model.encode_image(images)
+        return self._finish(emb, normalize)
 
     @torch.inference_mode()
     def text_batch(self, tokens: torch.Tensor, pad_mask: torch.Tensor,
                    normalize: Optional[bool] = None):
-        """One batch of token ids and pad mask on the model's device -> [B, sd_dim]."""
-        _, emb = self.model.extract_txt_sd_ft(tokens, pad_mask,
-                                              temperature=self.sd_temperature)
-        nrm = self.normalize if normalize is None else normalize
-        return self._normalize(emb) if nrm else emb
+        """One batch of token ids and pad mask on the model's device -> [B, E] fp32."""
+        if self.is_fdt:
+            _, emb = self.model.extract_txt_sd_ft(tokens, pad_mask,
+                                                  temperature=self.sd_temperature)
+        else:
+            emb = self.model.encode_text(tokens, pad_mask)["embed"]
+        return self._finish(emb, normalize)
 
     def encode_images(self, images: np.ndarray, normalize: Optional[bool] = None) -> np.ndarray:
-        """images: [N, H, W, 3] float array -> [N, sd_dim] float32."""
+        """images: [N, H, W, 3] float array -> [N, E] float32."""
         out = []
         bs = self.batch_size
         for i in range(0, len(images), bs):
@@ -90,7 +101,7 @@ class TorchEncoder:
                 chunk = np.concatenate([chunk, np.zeros((bs - real,) + chunk.shape[1:],
                                                         np.float32)])
             x = torch.from_numpy(chunk).to(self.device)
-            out.append(self.image_batch(x, normalize)[:real].float().cpu().numpy())
+            out.append(self.image_batch(x, normalize)[:real].cpu().numpy())
         return np.concatenate(out) if out else np.zeros((0, 1), np.float32)
 
     def _bucket(self, tokens: np.ndarray, pad_mask: np.ndarray):
@@ -121,7 +132,7 @@ class TorchEncoder:
                                   .to(self.device),
                                   torch.from_numpy(np.ascontiguousarray(pad)).to(self.device),
                                   normalize)
-            out.append(emb[:real].float().cpu().numpy())
+            out.append(emb[:real].cpu().numpy())
         return np.concatenate(out) if out else np.zeros((0, 1), np.float32)
 
     def encode_texts(self, texts: Sequence[str], normalize: Optional[bool] = None) -> np.ndarray:

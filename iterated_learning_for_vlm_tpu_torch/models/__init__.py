@@ -4,8 +4,9 @@ Counterpart of ``iterated_learning_for_vlm_tpu/models/__init__.py``:
 ``model_entry(config)`` takes the same nested config mapping (``type`` and
 ``kwargs`` with ``image_encode`` / ``text_encode`` / ``fdt`` blocks and the
 tower-wide knobs) and returns an ``nn.Module`` whose parameters live on
-``device`` and are drawn from ``generator``. Only ``clip_fdt_vitb32`` is
-ported so far; the other JAX model types raise a ``KeyError`` that says so.
+``device`` and are drawn from ``generator``. Ported so far: the baseline
+``clip_vitb32`` and ``clip_vitb16`` and ``clip_fdt_vitb32``; the other JAX
+model types raise a ``KeyError`` that says so.
 """
 from __future__ import annotations
 
@@ -13,14 +14,15 @@ from typing import Any, Mapping, Optional
 
 import torch
 
+from .clip import CLIP
 from .fdt import CLIPFDT, FDTConfig, QueryModel
 from .layers import init_module_tree
 from .sparsemax import sparsemax, sparsemax_bisect
 from .text import TextConfig, TextTransformer, text_base
-from .vit import VisionConfig, VisionTransformer, vit_b32
+from .vit import VisionConfig, VisionTransformer, vit_b16, vit_b32
 
 __all__ = [
-    "CLIPFDT", "FDTConfig", "QueryModel", "TextConfig", "TextTransformer",
+    "CLIP", "CLIPFDT", "FDTConfig", "QueryModel", "TextConfig", "TextTransformer",
     "VisionConfig", "VisionTransformer", "model_entry", "sparsemax", "sparsemax_bisect",
 ]
 
@@ -29,7 +31,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.b
 
 # model types of the JAX package that the port does not build yet
 UNPORTED = (
-    "clip_vitb32", "clip_vitb16", "clip_vitL14", "clip_vitL16", "clip_res50", "clip_res101",
+    "clip_vitL14", "clip_vitL16", "clip_res50", "clip_res101",
     "clip_swinB_v2", "clip_swinL", "clip_swinL_v2", "clip_swinMoE_B", "clip_swinMLP_B",
     "clip_swin_yaml", "clip_fdt_vitb16", "clip_fdt_swinB_v2", "clip_vitb32_sp",
     "clip_vitb32_auxilary", "clip_fdt_sp_vitb32", "declip_fdt_vitb32", "defilip_fdt_vitb32",
@@ -62,6 +64,22 @@ def _common(kwargs: Mapping[str, Any]):
     return img_kw, txt_kw, dtype
 
 
+def _clip(vision_factory, kw, device) -> CLIP:
+    """The ``clip`` block (``use_allgather``) is read by nothing: the loss
+    gathers the global batch."""
+    img_kw, txt_kw, dtype = _common(kw)
+    return CLIP(vision_cfg=vision_factory(**img_kw), text_cfg=text_base(**txt_kw),
+                dtype=dtype, device=device)
+
+
+def clip_vitb32(device=None, **kw) -> CLIP:
+    return _clip(vit_b32, kw, device)
+
+
+def clip_vitb16(device=None, **kw) -> CLIP:
+    return _clip(vit_b16, kw, device)
+
+
 def clip_fdt_vitb32(device=None, **kw) -> CLIPFDT:
     img_kw, txt_kw, dtype = _common(kw)
     fdt_kw = dict(kw.get("fdt", {}))
@@ -70,7 +88,8 @@ def clip_fdt_vitb32(device=None, **kw) -> CLIPFDT:
                    fdt_cfg=FDTConfig(**fdt_kw), dtype=dtype, device=device)
 
 
-_REGISTRY = {"clip_fdt_vitb32": clip_fdt_vitb32}
+_REGISTRY = {"clip_vitb32": clip_vitb32, "clip_vitb16": clip_vitb16,
+             "clip_fdt_vitb32": clip_fdt_vitb32}
 
 
 def model_entry(config, device=None, generator: Optional[torch.Generator] = None):

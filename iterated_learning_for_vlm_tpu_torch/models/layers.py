@@ -7,11 +7,14 @@ through ``tools/torch_checkpoint.py``. Parameters are fp32; each layer
 computes in its ``dtype`` (bf16 for serving), as the flax modules do.
 
 - ``LayerNorm`` normalises in fp32 and casts back (eps 1e-5).
-- ``MultiheadAttention`` takes the fused kernels (``ops/fused_attention.py``,
-  K2-fwd and K2-bwd through ``TinyAttention``, which gives ``in_proj_bias``
-  its gradient) when ``fused_attn`` is set and S <= 128, else the plain path;
-  both have the same numerics (fp32 logits and softmax, value product in the
-  operand dtype).
+- ``MultiheadAttention`` has three routes, with the JAX precedence:
+  ``use_flash`` takes flash attention (``ops/flash_attention.py``, K3-fwd and
+  K3-bwd through ``FlashAttention``, any S; fp32 value product) and turns the
+  fused route off; else ``fused_attn`` at S <= 128 takes the tiny-sequence
+  kernels (``ops/fused_attention.py``, K2-fwd and K2-bwd through
+  ``TinyAttention``, which gives ``in_proj_bias`` its gradient); else the
+  plain path. The fused and plain routes have the same numerics (fp32 logits
+  and softmax, value product in the operand dtype).
 - ``Transformer`` is a plain ``nn.ModuleList``: the JAX scan, remat and unroll
   are XLA compile strategies, so their knobs are accepted and ignored, as are
   the TPU tiling knobs of the fused attention kernel.
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.flash_attention import flash_attention
 from ..ops.fused_attention import MAX_SEQ, attention_reference, causal_bias, fused_tiny_attention
 from .initializers import scaled_normal, torch_bias_uniform
 
@@ -94,21 +98,20 @@ def packed_in_proj(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dt
 
 class MultiheadAttention(nn.Module):
     """Packed-QKV self-attention with torch ``nn.MultiheadAttention``'s
-    parameter names. ``use_flash`` selects kernel K3, which is not ported."""
+    parameter names. ``use_flash`` selects flash attention (K3) over the
+    fused tiny-sequence route (K2)."""
 
     def __init__(self, width: int, heads: int, attn_std: float = 0.02,
                  proj_std: float = 0.02, dtype=torch.float32, use_flash: bool = False,
                  fused_attn: bool = False, device=None):
         super().__init__()
-        if use_flash:
-            raise NotImplementedError("use_flash (flash attention, kernel K3) is not "
-                                      "ported to the PyTorch package yet")
         if width % heads:
             raise ValueError(f"width {width} is not a multiple of heads {heads}")
         self.heads = heads
         self.attn_std = attn_std
         self.proj_std = proj_std
         self.dtype = dtype
+        self.use_flash = use_flash
         self.fused_attn = fused_attn
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width, device=device))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width, device=device))
@@ -122,13 +125,18 @@ class MultiheadAttention(nn.Module):
             self.out_proj.bias.zero_()
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
-        s = x.shape[1]
-        use_fused = self.fused_attn and s <= MAX_SEQ
+        b, s, d = x.shape
+        use_fused = self.fused_attn and not self.use_flash and s <= MAX_SEQ
         qkv, in_bias = packed_in_proj(x, self.in_proj_weight, self.in_proj_bias,
                                       self.dtype, add_bias=not use_fused)
         if use_fused:
             out = fused_tiny_attention(qkv, self.heads, causal=causal,
                                        qkv_bias=in_bias.to(qkv.dtype))
+        elif self.use_flash:  # [B, S, H, hd] views of the packed columns, no copy
+            q, k, v = (t.reshape(b, s, self.heads, d // self.heads)
+                       for t in qkv.split(d, dim=-1))
+            out = flash_attention(q, k, v, causal_bias(s, x.device) if causal else None)
+            out = out.reshape(b, s, d)
         else:
             out = attention_reference(qkv, self.heads,
                                       causal_bias(s, x.device) if causal else None)

@@ -117,3 +117,10 @@ class VisionTransformer(nn.Module):
 def vit_b32(embed_dim=512, **kw) -> VisionConfig:
     return VisionConfig(**{**dict(patch_size=32, width=768, layers=12, heads=12,
                                   embed_dim=embed_dim), **kw})
+
+
+def vit_b16(embed_dim=512, **kw) -> VisionConfig:
+    """ViT-B/16: 197 tokens at 224 px, past the tiny-sequence kernels' 128, so
+    ``use_flash`` is this tower's only kernel route."""
+    return VisionConfig(**{**dict(patch_size=16, width=768, layers=12, heads=12,
+                                  embed_dim=embed_dim), **kw})

@@ -4,5 +4,7 @@
   backward (K1-bwd dq, K1-bwd dsd).
 - ``fused_attention``: tiny-sequence packed-QKV attention, forward (K2-fwd)
   and backward (K2-bwd).
+- ``flash_attention``: attention over ``[B, S, H, 64]`` heads at any S up to
+  1024, forward (K3-fwd) and backward (K3-bwd); the towers' ``use_flash`` route.
 - ``_build``: compiles ``csrc/*.cu`` with nvcc at first use, binds with ctypes.
 """

@@ -11,6 +11,10 @@ params through it unchanged, and this module goes the other way:
 - conv ``kernel`` HWIO -> OIHW;
 - LayerNorm ``norm/{scale,bias}`` -> ``weight``/``bias``; bare params as they are.
 
+The table covers the CLIP tree (``visual``, ``text``, ``logit_scale``) and
+the CLIP-FDT tree (the same, plus ``space_dict``, the query heads and
+``logit_scale_sd``).
+
 Any tree with the params' structure crosses the same way: gradients, and the
 AdamW ``mu`` / ``nu`` moments. The per-leaf AdamW ``count`` is a scalar per
 leaf, also for a layer-stacked one; ``layers`` gives each tower's depth so
@@ -85,8 +89,9 @@ _TOWERS_INV = {name: root for root, name in _TOWERS.items()}
 
 
 def jax_path(name: str) -> Tuple[str, ...]:
-    """The JAX param path of a port parameter; for a transformer block's
-    parameter, the path of the layer-stacked leaf (no layer index)."""
+    """The JAX param path of a port parameter (CLIP or CLIP-FDT); for a
+    transformer block's parameter, the path of the layer-stacked leaf (no
+    layer index)."""
     if name in _TOP_INV:
         return _TOP_INV[name]
     parts = name.split(".")
@@ -119,8 +124,11 @@ def _to_torch_layout(path: tuple, value: np.ndarray) -> np.ndarray:
 def state_dict_from_jax_params(params: Mapping[str, Any],
                                layers: Optional[Mapping[str, int]] = None
                                ) -> Dict[str, np.ndarray]:
-    """CLIP-FDT JAX params, or a tree of the same structure (nested dicts of
-    arrays), -> port ``state_dict`` arrays (float32, C-ordered copies).
+    """CLIP or CLIP-FDT JAX params (ViT towers), or a tree of the same
+    structure (nested dicts of arrays), -> port ``state_dict`` arrays
+    (float32, C-ordered copies). A CLIP tree has ``visual``, ``text`` and
+    ``logit_scale``; CLIP-FDT adds the codebook, the query heads and
+    ``logit_scale_sd``.
     ``layers`` (JAX tower root -> depth, e.g. ``{"visual": 12, "text": 12}``)
     is needed only for a tree of per-leaf scalars such as the AdamW count.
     Raises on a leaf it cannot place, so a param-tree change cannot be
@@ -147,8 +155,8 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
 
 
 def load_jax_params(model, params: Mapping[str, Any]):
-    """Load JAX params into a port model in place, on whatever device it
-    lives (strict: every key must match)."""
+    """Load JAX params into a port model (``CLIP`` or ``CLIPFDT``) in place,
+    on whatever device it lives (strict: every key must match)."""
     import torch
 
     sd = {k: torch.from_numpy(v) for k, v in state_dict_from_jax_params(params).items()}

@@ -1,10 +1,11 @@
 """The train step and the eval step.
 
 Counterpart of ``iterated_learning_for_vlm_tpu/train/step.py``. One step is,
-in the JAX step's order: forward (CLIP-FDT), global-batch InfoNCE, backward,
-gradient clipping, the logit-scale clamp before the update, ``lr =
-schedule(step + 1)``, masked AdamW, the clamp after, the ``logit_scale_param``
-delta / EMA / ``constant`` clamps, the codebook hold, ``step + 1``. Every IL
+in the JAX step's order: forward (CLIP-FDT with its temperature, or the
+baseline CLIP), global-batch InfoNCE, backward, gradient clipping, the
+logit-scale clamp before the update, ``lr = schedule(step + 1)``, masked
+AdamW, the clamp after, the ``logit_scale_param`` delta / EMA / ``constant``
+clamps, the codebook hold (CLIP-FDT only), ``step + 1``. Every IL
 phase is driven by the state (trainable flags, hold flag) and the
 temperature argument, so nothing is rebuilt at a phase change.
 
@@ -36,11 +37,9 @@ def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
 
     ``batch``: ``image`` [B, H, W, 3], ``tokens`` int [B, ctx], ``pad_mask``
     [B, ctx] (0 real / -inf pad), on the model's device; ``sd_temperature``
-    a float. ``metrics``: ``loss``, ``logit_scale``, ``acc1``, ``acc5`` as
-    0-d device tensors and ``lr`` as a float."""
-    if not is_fdt:
-        raise NotImplementedError("only CLIP-FDT is ported; the CLIP baseline step waits "
-                                  "for its model")
+    a float, which only a CLIP-FDT model (``is_fdt``) reads. ``metrics``:
+    ``loss``, ``logit_scale``, ``acc1``, ``acc5`` as 0-d device tensors and
+    ``lr`` as a float."""
     if spectral_norm or lipreg_lambda > 0.0:
         raise NotImplementedError("spectral_norm and lipreg are not ported")
     params = dict(model.named_parameters())
@@ -48,8 +47,8 @@ def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
     def step(state: TrainState, batch: Dict[str, Any], sd_temperature: float):
         for p in params.values():
             p.grad = None
-        out = model(batch["image"], batch["tokens"], batch.get("pad_mask"),
-                    sd_temperature=sd_temperature)
+        kwargs = {"sd_temperature": sd_temperature} if is_fdt else {}
+        out = model(batch["image"], batch["tokens"], batch.get("pad_mask"), **kwargs)
         loss, metrics = clip_info_nce(out["image_embed"], out["text_embed"],
                                       out["logit_scale"], reference_scale=reference_scale)
         loss.backward()
@@ -75,7 +74,7 @@ def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
                 state.ema_buffer = 0.9 * buf + 0.1 * ls.mean()
             elif grad_clip_type == "constant":
                 ls.copy_(before_ls)
-            if state.hold_codebook:
+            if is_fdt and state.hold_codebook:
                 params["space_dict"].copy_(state.stored_codebook)
         state.step += 1
         return {"loss": loss.detach(), "lr": lr, "logit_scale": ls.detach().mean(), **metrics}
@@ -85,14 +84,17 @@ def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
 
 def make_eval_step(model: torch.nn.Module, *, is_fdt: bool):
     """``eval_step(batch) -> (image_embed, text_embed)``, L2-normalised
-    (eps 1e-10), for in-training eval and benchmarks."""
-    if not is_fdt:
-        raise NotImplementedError("only CLIP-FDT is ported")
+    (eps 1e-10) in fp32, for in-training eval and benchmarks: the codebook
+    features of CLIP-FDT (``is_fdt``), the tower embeddings of CLIP."""
 
     @torch.no_grad()
     def eval_step(batch):
-        _, img = model.extract_img_sd_ft(batch["image"])
-        _, txt = model.extract_txt_sd_ft(batch["tokens"], batch["pad_mask"])
+        if is_fdt:
+            _, img = model.extract_img_sd_ft(batch["image"])
+            _, txt = model.extract_txt_sd_ft(batch["tokens"], batch["pad_mask"])
+        else:
+            img = model.encode_image(batch["image"])
+            txt = model.encode_text(batch["tokens"], batch["pad_mask"])["embed"]
         img = img.float()
         txt = txt.float()
         img = img / (torch.linalg.vector_norm(img, dim=-1, keepdim=True) + 1e-10)

@@ -15,6 +15,7 @@ import torch
 
 from iterated_learning_for_vlm_tpu_torch.models import model_entry
 from iterated_learning_for_vlm_tpu_torch.ops import codebook_attention as cb
+from iterated_learning_for_vlm_tpu_torch.ops import flash_attention as fl
 from iterated_learning_for_vlm_tpu_torch.ops import fused_attention as fa
 
 pytestmark = pytest.mark.gpu
@@ -33,6 +34,10 @@ BIAS_GRAD_RTOL = 1e-2
 # K1-bwd: the same routed products summed in fp32 in another order, then
 # rounded to bf16: one bf16 ulp (<= 2^-7 relative) plus fp32 noise near 0.
 POOL_BWD_ATOL, POOL_BWD_RTOL = 1e-4, 8e-3
+# K3-fwd and K3-bwd: both sides form the same fp32 values (p and ds unrounded)
+# in another summation order and round once to bf16: one bf16 ulp of |ref|
+# (<= 2^-7 relative), plus 1e-3 for fp32 noise on values near 0.
+FLASH_ATOL, FLASH_RTOL = 1e-3, 2.0 ** -7
 
 
 @pytest.fixture(scope="module")
@@ -112,6 +117,85 @@ def test_tiny_attention_function_bias_grad(dev):
     assert bias3.grad.dtype == torch.bfloat16
     berr = (bias3.grad.float() - ref_b).abs().max().item()
     assert berr <= BIAS_GRAD_RTOL * ref_b.abs().max().item(), berr
+
+
+def _flash_case(dev, b, s, h, bias_kind, seed):
+    """q, k, v as the [B, S, H, 64] column-block views of one packed
+    [B, S, 3D] tensor (the tower route's layout), a contiguous output
+    gradient and the bias: none, causal, or arbitrary with some -inf."""
+    g = _gen(seed)
+    d = 64 * h
+    qkv = torch.randn(b, s, 3 * d, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, 64) for t in qkv.split(d, dim=-1))
+    dout = torch.randn(b, s, h, 64, generator=g, device=dev).to(torch.bfloat16)
+    bias = None
+    if bias_kind == "causal":
+        bias = fa.causal_bias(s, dev)
+    elif bias_kind == "random":
+        bias = torch.randn(s, s, generator=g, device=dev)
+        bias[torch.rand(s, s, generator=g, device=dev) < 0.2] = float("-inf")
+        bias[:, 0] = 0.0
+    return q, k, v, dout, bias
+
+
+def _assert_flash_close(name, got, ref):
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape, name
+    err = (got.float() - ref.float()).abs()
+    assert torch.all(err <= FLASH_ATOL + FLASH_RTOL * ref.float().abs()), (name, err.max().item())
+
+
+@pytest.mark.parametrize("b,s,h,bias_kind", [
+    (3, 1, 2, "none"), (2, 32, 8, "causal"), (4, 50, 12, "none"), (2, 77, 8, "causal"),
+    (2, 197, 12, "none"), (2, 257, 16, "none"), (2, 257, 4, "causal"), (2, 100, 4, "random"),
+    (1, 1024, 2, "causal"),
+])
+def test_flash_attention_kernels_match_plain(dev, b, s, h, bias_kind):
+    """K3-fwd and K3-bwd against their plain versions at the tower shapes
+    (text S=32 and 77 causal, vision S=50, ViT-B/16 S=197, L/14 S=257), the
+    edges (S=1, the S bound) and an arbitrary bias; one launch count each."""
+    q, k, v, dout, bias = _flash_case(dev, b, s, h, bias_kind, seed=s)
+    before = (fl.flash_attention_fwd.launches, fl.flash_attention_bwd.launches)
+    out = fl.flash_attention_fwd(q, k, v, bias)
+    grads = fl.flash_attention_bwd(q, k, v, bias, dout)
+    torch.cuda.synchronize()
+    assert (fl.flash_attention_fwd.launches, fl.flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _assert_flash_close("out", out, fl.flash_attention_reference(q, k, v, bias))
+    refs = fl.flash_attention_bwd_reference(q, k, v, bias, dout)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        _assert_flash_close(name, got, ref)
+
+
+def test_flash_attention_bwd_repeats_bit_for_bit(dev):
+    """Every gradient element has one owner summing in a fixed order (no
+    float atomics), so two calls agree bit for bit."""
+    q, k, v, dout, bias = _flash_case(dev, 8, 197, 12, "none", seed=3)
+    first = fl.flash_attention_bwd(q, k, v, bias, dout)
+    second = fl.flash_attention_bwd(q, k, v, bias, dout)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    q, k, v, dout, bias = _flash_case(dev, 8, 77, 8, "causal", seed=4)
+    first = fl.flash_attention_bwd(q, k, v, bias, dout)
+    assert all(torch.equal(a, b) for a, b in zip(first, fl.flash_attention_bwd(q, k, v, bias,
+                                                                               dout)))
+
+
+def test_flash_attention_function_autograd(dev):
+    """Autograd through ``flash_attention`` from the packed tensor: the
+    [B, S, 3D] gradient is the kernels' dq | dk | dv, against the plain
+    backward; the bias gets none."""
+    b, s, h = 3, 77, 8
+    g = _gen(11)
+    qkv = torch.randn(b, s, 3 * 64 * h, generator=g, device=dev).to(torch.bfloat16)
+    qkv.requires_grad_()
+    dout = torch.randn(b, s, h, 64, generator=g, device=dev).to(torch.bfloat16)
+    bias = fa.causal_bias(s, dev).requires_grad_()
+    q, k, v = (t.reshape(b, s, h, 64) for t in qkv.split(64 * h, dim=-1))
+    fl.flash_attention(q, k, v, bias[None, None]).backward(dout)
+    refs = fl.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(), bias.detach(),
+                                            dout)
+    for name, got, ref in zip(("dq", "dk", "dv"), qkv.grad.split(64 * h, dim=-1), refs):
+        _assert_flash_close(name, got.reshape(b, s, h, 64), ref)
+    assert bias.grad is None
 
 
 def _pool_case(dev, b, t, d, n, with_keep, seed):
@@ -211,6 +295,14 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(dev):
         cb.codebook_pool_bwd_dq(q, sd, None, 1.0, amax.long(), gp)
     with pytest.raises(ValueError, match="g must"):
         cb.codebook_pool_bwd_dsd(q, sd, None, 1.0, amax, gp.to(bf))
+    with pytest.raises(ValueError, match="bfloat16"):
+        fl.flash_attention_fwd(*(torch.zeros(1, 4, 2, 64, device=dev),) * 3)
+    big = torch.zeros(1, fl.MAX_SEQ + 1, 1, 64, dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="S <="):
+        fl.flash_attention_fwd(big, big, big)
+    qh = torch.zeros(2, 4, 1, 64, dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="dout"):
+        fl.flash_attention_bwd(qh, qh, qh, None, torch.zeros(2, 4, 1, 64, device=dev))
     with pytest.raises(ValueError, match="D <="):
         cb.codebook_pool_bwd_dsd(torch.zeros(2, 4, 1088, dtype=bf, device=dev),
                                  torch.zeros(8, 1088, dtype=bf, device=dev), None, 1.0,
@@ -287,3 +379,41 @@ def test_model_gradients_kernel_path_match_plain_path(dev):
         cos = torch.nn.functional.cosine_similarity(ga.flatten().float(), gb.flatten().float(),
                                                     dim=0).item()
         assert cos >= 0.99, (name, cos)
+
+
+def test_clip_flash_route_matches_plain_route(dev):
+    """A small bf16 CLIP (head_dim 64) on the flash route against the same
+    weights on the plain route: embeddings at cosine >= 0.999, every
+    gradient at cosine >= 0.99, and K3 launched once per layer each way."""
+    from iterated_learning_for_vlm_tpu_torch.train.loss import clip_info_nce
+
+    def cfg(flash):
+        return {"type": "clip_vitb32", "kwargs": {
+            "image_encode": {"input_resolution": 64, "patch_size": 16, "width": 128,
+                             "layers": 2, "heads": 2, "embed_dim": 64},
+            "text_encode": {"context_length": 20, "vocab_size": 300, "width": 128,
+                            "heads": 2, "layers": 2, "embed_dim": 64},
+            "use_flash": flash, "dtype": "bfloat16"}}
+
+    fast = model_entry(cfg(True), device=dev, generator=_gen(0))
+    plain = model_entry(cfg(False), device=dev, generator=_gen(1))
+    plain.load_state_dict(fast.state_dict())
+    _, _, batch = _small_pair(dev)
+    before = (fl.flash_attention_fwd.launches, fl.flash_attention_bwd.launches)
+    grads, outs = [], []
+    for model in (fast, plain):
+        out = model(*batch)
+        loss, _ = clip_info_nce(out["image_embed"], out["text_embed"], out["logit_scale"])
+        loss.backward()
+        outs.append(out)
+        grads.append({n: p.grad for n, p in model.named_parameters() if p.requires_grad})
+    torch.cuda.synchronize()
+    assert (fl.flash_attention_fwd.launches - before[0],
+            fl.flash_attention_bwd.launches - before[1]) == (4, 4)
+    for key in ("image_embed", "text_embed"):
+        cos = (outs[0][key] * outs[1][key]).sum(-1)
+        assert torch.all(cos >= 0.999), (key, cos.min().item())
+    for name, ga in grads[0].items():
+        cos = torch.nn.functional.cosine_similarity(ga.flatten().float(),
+                                                    grads[1][name].flatten().float(), dim=0)
+        assert cos.item() >= 0.99, (name, cos.item())

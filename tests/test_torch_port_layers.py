@@ -152,9 +152,21 @@ def test_transformer_stack():
                                np.asarray(mod.apply({"params": p}, jnp.asarray(x))), atol=ATOL)
 
 
-def test_flash_knob_is_refused_until_ported():
-    with pytest.raises(NotImplementedError, match="K3"):
-        tl.MultiheadAttention(64, 2, use_flash=True)
+@pytest.mark.parametrize("seq,causal,fused", [(13, False, False), (12, True, True)])
+def test_multihead_attention_flash_route(seq, causal, fused):
+    """``use_flash`` against the flax module's flash route (the JAX K3 kernel
+    in interpret mode, jitted), with the causal mask as its bias; with
+    ``fused_attn`` also set, flash still wins on both sides, as in JAX."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((3, seq, 128)).astype(np.float32)
+    bias = jnp.triu(jnp.full((seq, seq), -jnp.inf), k=1) if causal else None
+    mod = jl.MultiheadAttention(num_heads=2, use_flash=True, fused_attn=fused)
+    p = _noisy_params(mod, rng, jnp.asarray(x), bias=bias)
+    want, _ = jax.jit(mod.apply)({"params": p}, jnp.asarray(x), bias=bias)
+    port = tl.MultiheadAttention(128, 2, use_flash=True, fused_attn=fused)
+    port.load_state_dict(_block_state(p, prefix=("attn",)))
+    np.testing.assert_allclose(port(_t(x), causal=causal).detach().numpy(),
+                               np.asarray(want), atol=ATOL)
 
 
 # -- sparsemax -------------------------------------------------------------
@@ -329,6 +341,7 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import iterated_learning_for_vlm_tpu_torch.models\n"
         "import iterated_learning_for_vlm_tpu_torch.ops.codebook_attention\n"
+        "import iterated_learning_for_vlm_tpu_torch.ops.flash_attention\n"
         "import iterated_learning_for_vlm_tpu_torch.ops.fused_attention\n"
         "import iterated_learning_for_vlm_tpu_torch.eval.encode\n"
         "import iterated_learning_for_vlm_tpu_torch.tools.torch_checkpoint\n"

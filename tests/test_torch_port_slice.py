@@ -109,7 +109,7 @@ def test_port_state_dict_has_reference_names(jax_params):
 
 def test_model_entry_names_unported_types():
     with pytest.raises(KeyError, match="not ported"):
-        model_entry({"type": "clip_vitb32", "kwargs": {}})
+        model_entry({"type": "clip_vitL14", "kwargs": {}})
     with pytest.raises(KeyError, match="unknown"):
         model_entry({"type": "no_such_model", "kwargs": {}})
 

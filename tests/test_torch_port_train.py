@@ -394,7 +394,7 @@ def test_eval_step_matches_jax(jax_params):
 def test_unported_step_options_raise(jax_params):
     model = port_model(jax_params)
     with pytest.raises(NotImplementedError):
-        make_train_step(model, _schedule(schedule), {}, is_fdt=False)
+        make_train_step(model, _schedule(schedule), {}, is_fdt=True, lipreg_lambda=0.1)
     with pytest.raises(NotImplementedError):
         make_train_step(model, _schedule(schedule), {}, is_fdt=True, spectral_norm=True)
     with pytest.raises(NotImplementedError):
