@@ -16,7 +16,10 @@ and depth, bf16, both kernels on, random weights from seed 0),
 2. build: compile the kernels from ``csrc/`` with nvcc;
 3. kernels: each forward kernel against its plain PyTorch version at the
    main-path shapes, in bf16, max abs error beside the tolerance, and both
-   times (CUDA events, in turns);
+   times (CUDA events, in turns), beside the kernel's bound (the larger of
+   its bytes over 3.35 TB/s and its bf16 operations over 989 TFLOP/s) and,
+   for attention, the time of ``torch.nn.functional.scaled_dot_product_attention``
+   on the same inputs (a yardstick only: no module of the port calls it);
 3b. backward kernels: K2-bwd (dqkv and dbias3 through autograd of
    ``fused_tiny_attention``) and K1-bwd dq / dsd (fed the forward kernel's
    amax on both sides) the same way;
@@ -28,6 +31,10 @@ and depth, bf16, both kernels on, random weights from seed 0),
    ctx-32 and ctx-77 buckets, read the counters; embeddings must be finite,
    unit-norm, match the plain path within a cosine bound, and every forward
    kernel must have launched;
+4b. captions: ``TorchEncoder.encode_texts`` of real captions through the
+   port's own tokenizer (counters reset just before, read just after: 12
+   K2-fwd, 1 K1-fwd), held against the plain path, with a known caption's
+   token ids;
 5. timing: embeds/s per tower at batch 256, kernel path against plain path,
    and a ``torch.profiler`` table of one kernel-path batch per tower;
 6. train: one step at batch 256, ctx 32 on the kernel path (counters reset
@@ -55,7 +62,9 @@ K2 route (as shipped, ``fused_attn: true``) and the plain route (neither):
 10. CLIP ViT-B/16 (S=197, which only K3 takes): one train step on the flash
    route (24 / 24 launches) against the plain route, and one paired time.
 
-Any failure exits non-zero. The line before the last is the kernels JSON,
+Any failure exits non-zero. The line before the last is the kernels JSON
+(each kernel's train-step launches, error, times, bound and library time at
+its first shape),
 the last ``{"ok": true, "device": {...}}``. All numbers also go to
 ``build/chip_smoke.json`` (git-ignored).
 """
@@ -109,11 +118,12 @@ NORM_ATOL = 1e-3
 # K2-bwd dqkv: fp32 sums in another order rounded to bf16, after p and ds were
 # rounded to bf16 at the same places on both sides; as K2-fwd.
 ATTN_BWD_ATOL, ATTN_BWD_RTOL = 2e-2, 1e-2
-# dbias3, taken through autograd of fused_tiny_attention (TinyAttention.backward)
-# against the plain dqkv's fp32 sum over (B, S), both cast to the bf16 bias
-# dtype: the fp32 sums differ by <= 2e-3 on an H100 (their dqkv differ by one
-# bf16 ulp of small values), so the bf16 casts differ by that plus one bf16 ulp.
-BIAS_GRAD_ATOL = 4e-3
+# dbias3, taken through autograd of fused_tiny_attention (TinyAttention.backward),
+# is the fp32 sum over (B, S) of the kernel's dqkv cast to bf16: it must equal
+# that sum bit for bit. Against the plain dqkv's sum, each of the B*S summed
+# elements may differ within the dqkv tolerance, so the fp32 sums may differ by
+# the sum of those tolerances, and the bf16 casts by that plus one bf16 ulp.
+# (The key block is analytically 0, so both sums there are rounding noise.)
 # K1-bwd dq/dsd: the same routed products summed in fp32 in another order,
 # rounded to bf16: one bf16 ulp (<= 2^-7 relative) plus fp32 noise near 0.
 POOL_BWD_ATOL, POOL_BWD_RTOL = 1e-4, 8e-3
@@ -128,6 +138,17 @@ FLASH_ATOL, FLASH_RTOL = 1e-3, 2.0 ** -7
 TRAIN_LOSS_ATOL = 1e-2
 GRAD_MIN_COS = 0.98
 SCALAR_GRAD_RTOL = 5e-2  # one-element parameters (logit_scale): relative error
+# The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): a kernel's
+# bound is the larger of its bytes over HBM_BPS and its operations over BF16_FLOPS
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+# captions for phase 4b, and the reference tokenizer's ids of the first
+CAPTIONS = ["a photo of a cat", "A dog runs on the beach at sunset.",
+            "two people riding bicycles down a busy city street",
+            "a bowl of ramen with an egg, green onions and pork",
+            "Crème brûlée on a white plate", "an aerial view of a river delta",
+            "it's a red double-decker bus in London", "a child's drawing of a house"]
+CAT_TOKENS = [49407, 320, 1125, 539, 320, 2368, 49408]
 PCONFIG = {"ln_w": {"weight_decay": 0}, "ln_b": {"weight_decay": 0},
            "bias": {"weight_decay": 0}, "logit_scale": {"weight_decay": 0}}
 # leaves the FDT forward never reads: their gradient is exactly 0 on both paths
@@ -205,6 +226,59 @@ def check(cond: bool, msg: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
+def bound_ms(nbytes: float, ops: float):
+    """The least time the card could take: (ms, "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_ops(b, s, h, causal, products):
+    """bf16 operations of ``products`` [S, S] x [S, 64] products over B*H
+    heads, counting only the (query, key) pairs the causal mask keeps."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 2.0 * products * b * h * pairs * 64
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def sdpa_fwd(q, k, v, causal):
+    """``scaled_dot_product_attention`` on the [B, H, S, 64] views of q, k, v
+    ([B, S, H, 64])."""
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(*heads, is_causal=causal)
+
+
+def sdpa_fwd_bwd(q, k, v, causal, dout):
+    """The same forward and its backward through autograd, for the output
+    gradient ``dout`` ([B, S, H, 64])."""
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    grad = dout.transpose(1, 2)
+
+    def call():
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=causal)
+        return torch.autograd.grad(out, leaves, grad)
+
+    return call
+
+
+def timed_row(row, plain, kernel, library=None, iters=10):
+    """Times in turns (plain, kernel[, library], ...back) into ``row``."""
+    fns = {"plain_ms": plain, "ms": kernel}
+    if library is not None:
+        fns["library_ms"] = library
+    row.update({"library_ms": None} | turns_ms(fns, iters))
+    return row
+
+
+def timing_text(row) -> str:
+    lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+    return (f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} library_ms={lib} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, "
+            f"{row['bound_ms'] / row['ms']:.1%} of it)")
+
+
 # -- phase 3: kernels against their plain versions ---------------------------
 def attention_case(dev, name, b, s, h, causal):
     from iterated_learning_for_vlm_tpu_torch.ops import fused_attention as fa
@@ -219,12 +293,18 @@ def attention_case(dev, name, b, s, h, causal):
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs()
     ok = bool(torch.all(err <= ATTN_ATOL + ATTN_RTOL * ref.float().abs()))
-    plain_ms, ms = paired_ms(lambda: fa.attention_reference(qkv + bias3, h, mask),
-                             lambda: fa.tiny_attention_fwd(qkv, h, causal, bias3))
+    d = 64 * h
+    x = qkv + bias3  # the yardstick gets the bias added beforehand
+    lib_fwd = sdpa_fwd(*(t.reshape(b, s, h, 64) for t in x.split(d, dim=-1)), causal)
     row = {"case": name, "max_abs_err": err.max().item(), "atol": ATTN_ATOL,
-           "rtol": ATTN_RTOL, "within_tol": ok, "ms": ms, "plain_ms": plain_ms}
+           "rtol": ATTN_RTOL, "within_tol": ok}
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes(qkv, bias3, got),
+                                                attention_ops(b, s, h, causal, 2))
+    del ref, got
+    timed_row(row, lambda: fa.attention_reference(qkv + bias3, h, mask),
+              lambda: fa.tiny_attention_fwd(qkv, h, causal, bias3), lib_fwd)
     log(f"kernel tiny_attention_fwd {name}: max_abs_err={row['max_abs_err']:.3e} "
-        f"(tol {ATTN_ATOL} + {ATTN_RTOL}*|ref|) ok={ok} ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        f"(tol {ATTN_ATOL} + {ATTN_RTOL}*|ref|) ok={ok} {timing_text(row)}")
     check(ok, f"tiny_attention_fwd {name} disagrees with attention_reference")
     return row
 
@@ -252,15 +332,17 @@ def pool_case(dev, name, b, t, with_keep):
     decided = (top2[:, 0] - top2[:, 1] > 10 * POOL_ATOL) | (top2[:, 0] == top2[:, 1])
     amax_ok = bool(torch.equal(got_a[decided], ref_a[decided]))
     del inner
-    plain_ms, ms = paired_ms(lambda: cb.codebook_pool_fwd_reference(q, sd, keep, temp),
-                             lambda: cb.codebook_pool_fwd(q, sd, keep, temp))
     row = {"case": name, "max_abs_err": err.max().item(), "atol": POOL_ATOL,
            "rtol": POOL_RTOL, "within_tol": ok, "amax_equal": amax_ok,
-           "amax_compared": decided.float().mean().item(), "ms": ms, "plain_ms": plain_ms}
+           "amax_compared": decided.float().mean().item()}
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes(q, sd, keep, got_p, got_a),
+                                                2.0 * b * t * sd.shape[0] * sd.shape[1])
+    timed_row(row, lambda: cb.codebook_pool_fwd_reference(q, sd, keep, temp),
+              lambda: cb.codebook_pool_fwd(q, sd, keep, temp))
     log(f"kernel codebook_pool_fwd {name}: max_abs_err={row['max_abs_err']:.3e} "
         f"(tol {POOL_ATOL} + {POOL_RTOL}*|ref|) ok={ok} amax_equal={amax_ok} on "
         f"{row['amax_compared']:.4f} of entries (top-2 gap > {10 * POOL_ATOL}) "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        f"{timing_text(row)}")
     check(ok and amax_ok, f"codebook_pool_fwd {name} disagrees with its plain version")
     return row
 
@@ -280,23 +362,36 @@ def attention_bwd_case(dev, name, b, s, h, causal):
     ref = fa.attention_bwd_reference(qkv, h, causal, bias3, dout)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs()
-    ok = bool(torch.all(err <= ATTN_BWD_ATOL + ATTN_BWD_RTOL * ref.float().abs()))
+    tol = ATTN_BWD_ATOL + ATTN_BWD_RTOL * ref.float().abs()
+    ok = bool(torch.all(err <= tol))
+    # the share of dqkv elements that differ from the plain version, per block
+    differ = [(a != r).float().mean().item() for a, r in zip(got.split(d, dim=-1),
+                                                              ref.split(d, dim=-1))]
+    own_b = got.sum(dim=(0, 1), dtype=torch.float32).to(bias3.dtype).float()
     ref_b = ref.float().sum(dim=(0, 1)).to(bias3.dtype).float()
     bf16_ulp = torch.exp2(torch.floor(torch.log2(ref_b.abs().clamp_min(1e-30))) - 7)
+    bias_tol_t = tol.sum(dim=(0, 1)) + bf16_ulp
     bias_diff = (got_b - ref_b).abs()
     bias_err = bias_diff.max().item()
-    bias_ok = bool(torch.all(bias_diff <= BIAS_GRAD_ATOL + bf16_ulp))
-    bias_tol = f"{BIAS_GRAD_ATOL} + 1 bf16 ulp of |ref| (max {bf16_ulp.max().item():.3g})"
-    del qkv_k, bias_k, got
-    plain_ms, ms = paired_ms(lambda: fa.attention_bwd_reference(qkv, h, causal, bias3, dout),
-                             lambda: fa.tiny_attention_bwd(qkv, h, causal, bias3, dout))
+    bias_ok = bool(torch.equal(got_b, own_b)) and bool(torch.all(bias_diff <= bias_tol_t))
+    bias_tol = (f"equal to the sum of its own dqkv; vs plain: the summed dqkv tolerance + "
+                f"1 bf16 ulp (min {bias_tol_t.min().item():.3g})")
     row = {"case": name, "max_abs_err": err.max().item(), "atol": ATTN_BWD_ATOL,
-           "rtol": ATTN_BWD_RTOL, "within_tol": ok, "dbias3_max_abs_err": bias_err,
-           "dbias3_tol": bias_tol, "dbias3_within_tol": bias_ok, "ms": ms, "plain_ms": plain_ms}
+           "rtol": ATTN_BWD_RTOL, "within_tol": ok, "share_differing_dq_dk_dv": differ,
+           "dbias3_max_abs_err": bias_err, "dbias3_tol": bias_tol, "dbias3_within_tol": bias_ok}
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes(qkv, bias3, dout, got),
+                                                attention_ops(b, s, h, causal, 5))
+    del qkv_k, bias_k, got, ref, err, tol
+    x = qkv + bias3
+    lib_bwd = sdpa_fwd_bwd(*(t.reshape(b, s, h, 64) for t in x.split(d, dim=-1)), causal,
+                           dout.reshape(b, s, h, 64))
+    timed_row(row, lambda: fa.attention_bwd_reference(qkv, h, causal, bias3, dout),
+              lambda: fa.tiny_attention_bwd(qkv, h, causal, bias3, dout), lib_bwd)
     log(f"kernel tiny_attention_bwd {name} (autograd of fused_tiny_attention): dqkv "
         f"max_abs_err={row['max_abs_err']:.3e} (tol {ATTN_BWD_ATOL} + {ATTN_BWD_RTOL}*|ref|) "
-        f"ok={ok}; dbias3 max_abs_err={bias_err:.3e} (tol {bias_tol}) ok={bias_ok} "
-        f"ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        f"ok={ok}, share of elements differing dq/dk/dv "
+        f"{differ[0]:.2e}/{differ[1]:.2e}/{differ[2]:.2e}; dbias3 max_abs_err={bias_err:.3e} "
+        f"({bias_tol}) ok={bias_ok} {timing_text(row)} (library: forward + backward)")
     check(ok and bias_ok, f"tiny_attention_bwd {name} disagrees with its plain version")
     return row
 
@@ -329,14 +424,19 @@ def pool_bwd_cases(dev, name, b, t, with_keep):
         pads_zero = True
         if keep is not None and entry.endswith("dq"):
             pads_zero = bool(torch.all(got[keep == 0] == 0))
-        del got, ref
-        plain_ms, ms = paired_ms(lambda: plain(*args), lambda: kernel(*args))
+        # bytes the function needs: dq reads the codebook, dsd the tokens;
+        # both read the routing (amax, g, keep) and write their gradient
         row = {"case": name, "entry": entry, "max_abs_err": err.max().item(),
                "atol": POOL_BWD_ATOL, "rtol": POOL_BWD_RTOL, "within_tol": ok,
-               "pads_zero": pads_zero, "ms": ms, "plain_ms": plain_ms}
+               "pads_zero": pads_zero}
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            nbytes(sd if entry.endswith("dq") else q, keep, amax, gp, got),
+            2.0 * b * sd.shape[0] * sd.shape[1])
+        del got, ref
+        timed_row(row, lambda: plain(*args), lambda: kernel(*args))
         log(f"kernel {entry} {name}: max_abs_err={row['max_abs_err']:.3e} "
             f"(tol {POOL_BWD_ATOL} + {POOL_BWD_RTOL}*|ref|) ok={ok} pads_zero={pads_zero} "
-            f"ms={ms:.4f} plain_ms={plain_ms:.4f}")
+            f"{timing_text(row)}")
         check(ok and pads_zero, f"{entry} {name} disagrees with its plain version")
         rows.append(row)
     return rows
@@ -366,13 +466,16 @@ def flash_case(dev, name, b, s, h, causal):
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs()
     ok = bool(torch.all(err <= FLASH_ATOL + FLASH_RTOL * ref.float().abs()))
-    del got, ref
-    plain_ms, ms = paired_ms(lambda: fl.flash_attention_reference(q, k, v, bias),
-                             lambda: fl.flash_attention_fwd(q, k, v, bias))
+    lib_fwd, lib_bwd = sdpa_fwd(q, k, v, causal), sdpa_fwd_bwd(q, k, v, causal, dout)
     rows.append({"case": name, "max_abs_err": err.max().item(), "atol": FLASH_ATOL,
-                 "rtol": FLASH_RTOL, "within_tol": ok, "ms": ms, "plain_ms": plain_ms})
+                 "rtol": FLASH_RTOL, "within_tol": ok})
+    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound_ms(
+        nbytes(q, k, v, bias, got), attention_ops(b, s, h, causal, 2))
+    del got, ref
+    timed_row(rows[-1], lambda: fl.flash_attention_reference(q, k, v, bias),
+              lambda: fl.flash_attention_fwd(q, k, v, bias), lib_fwd)
     log(f"kernel flash_attention_fwd {name}: max_abs_err={rows[-1]['max_abs_err']:.3e} "
-        f"(tol {FLASH_ATOL} + 2^-7*|ref|) ok={ok} ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        f"(tol {FLASH_ATOL} + 2^-7*|ref|) ok={ok} {timing_text(rows[-1])}")
     check(ok, f"flash_attention_fwd {name} disagrees with flash_attention_reference")
 
     qkv_k = qkv.clone().requires_grad_()
@@ -384,15 +487,16 @@ def flash_case(dev, name, b, s, h, causal):
     ok = all(bool(torch.all((got.reshape(ref.shape).float() - ref.float()).abs()
                             <= FLASH_ATOL + FLASH_RTOL * ref.float().abs()))
              for got, ref in zip(heads(qkv_k.grad), refs))
-    del qkv_k, refs
-    plain_ms, ms = paired_ms(lambda: fl.flash_attention_bwd_reference(q, k, v, bias, dout),
-                             lambda: fl.flash_attention_bwd(q, k, v, bias, dout))
     rows.append({"case": name, "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
-                 "atol": FLASH_ATOL, "rtol": FLASH_RTOL, "within_tol": ok, "ms": ms,
-                 "plain_ms": plain_ms})
+                 "atol": FLASH_ATOL, "rtol": FLASH_RTOL, "within_tol": ok})
+    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound_ms(
+        nbytes(q, k, v, bias, dout, qkv_k.grad), attention_ops(b, s, h, causal, 5))
+    del qkv_k, refs
+    timed_row(rows[-1], lambda: fl.flash_attention_bwd_reference(q, k, v, bias, dout),
+              lambda: fl.flash_attention_bwd(q, k, v, bias, dout), lib_bwd)
     log(f"kernel flash_attention_bwd {name} (autograd of flash_attention): max_abs_err "
         f"dq/dk/dv={errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {FLASH_ATOL} + 2^-7*|ref|) "
-        f"ok={ok} ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        f"ok={ok} {timing_text(rows[-1])} (library: forward + backward)")
     check(ok, f"flash_attention_bwd {name} disagrees with flash_attention_bwd_reference")
     return rows
 
@@ -788,6 +892,33 @@ def main() -> int:
             check(cos.min().item() >= EMBED_MIN_COS, f"{name} disagree with the plain path")
     report["serve"] = {"seconds_host": serve_s, "launches": launches, **serve_rows}
 
+    # 4b. captions through the port's own tokenizer (no tokenizer passed in)
+    enc.encode_texts(CAPTIONS[:1])  # first call: loads the tokenizer's vocabulary
+    torch.cuda.synchronize()
+    fa.tiny_attention_fwd.launches = cb.codebook_pool_fwd.launches = 0
+    emb = enc.encode_texts(CAPTIONS)
+    torch.cuda.synchronize()
+    caption_launches = {"tiny_attention_fwd": fa.tiny_attention_fwd.launches,
+                        "codebook_pool_fwd": cb.codebook_pool_fwd.launches}
+    cat = enc.tokenizer(CAPTIONS[:1], context_length=77)[0][0, :len(CAT_TOKENS)].tolist()
+    cos = float(cosines(emb, enc_plain.encode_texts(CAPTIONS)).min())
+    norm_err = float(np.abs(np.linalg.norm(emb, axis=-1) - 1).max())
+    log(f"captions: {len(CAPTIONS)} through TorchEncoder.encode_texts with the port's "
+        f"tokenizer ({type(enc.tokenizer).__module__}); launches {caption_launches}; "
+        f"'{CAPTIONS[0]}' -> {cat}; |norm-1| max {norm_err:.2e}, min cosine vs plain path "
+        f"{cos:.6f} (bound {EMBED_MIN_COS})")
+    check(type(enc.tokenizer).__module__ == "iterated_learning_for_vlm_tpu_torch.data.tokenizer",
+          "encode_texts did not take the port's tokenizer")
+    check(cat == CAT_TOKENS, f"the tokenizer gave {cat} for '{CAPTIONS[0]}', expected {CAT_TOKENS}")
+    check(emb.shape == (len(CAPTIONS), 512) and bool(np.isfinite(emb).all())
+          and norm_err <= NORM_ATOL, "caption embeddings are malformed")
+    check(cos >= EMBED_MIN_COS, "caption embeddings disagree with the plain path")
+    check(caption_launches == {"tiny_attention_fwd": 12, "codebook_pool_fwd": 1},
+          f"captions launched {caption_launches}, expected 12 and 1")
+    check("jax" not in sys.modules, "encoding captions imported jax")
+    report["captions"] = {"launches": caption_launches, "cat_tokens": cat,
+                          "min_cos_vs_plain": cos, "max_norm_err": norm_err}
+
     # 5. embeds/s at batch 256, device time, kernel path vs plain path
     t77 = torch.from_numpy(tok77).to(dev)
     p77 = torch.from_numpy(pad77).to(dev)
@@ -888,7 +1019,8 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": (clip_train_launches if flash else train_launches)[name],
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
-                        "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+                        **{key: rows[0][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                         "bound_by", "library_ms")},
                         "shape": rows[0]["case"]})
         serving = clip_serve_launches if flash else launches
         if serving.get(name):

@@ -133,15 +133,8 @@ __device__ __forceinline__ float logit(float acc, float scale, const float* bias
   return x;
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
+using ilvlm::quad_max;
+using ilvlm::quad_sum;
 
 // Store a warp's 16 x 64 fp32 result times `mul` as bf16 rows of a contiguous
 // [B, S, H, 64] tensor (`base` at its (sample, row 0, head)).

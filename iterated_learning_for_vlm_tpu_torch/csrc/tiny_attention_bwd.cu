@@ -1,13 +1,13 @@
 // K2-bwd: backward of multi-head self-attention for tiny sequences, packed QKV.
 //
 // Replaces the TPU kernel iterated_learning_for_vlm_tpu/ops/fused_attention.py
-// `_bwd_kernel` (launched by `_bwd_local`). Same function: for each sample and
-// head it recomputes the softmax from q and k (the in_proj bias optionally
-// absorbed, added in bf16 as the forward adds it), then
+// `_bwd_kernel` (l.173, launched by `_bwd_local`). Same function: for each
+// sample and head it recomputes the softmax from q and k (the in_proj bias
+// optionally absorbed, added in bf16 as the forward adds it), then
 //
 //   dv = p^T do          p rounded to bf16, fp32 sums
 //   dp = do v^T          fp32
-//   ds = p (dp - sum_j dp p)   fp32, then rounded to bf16
+//   ds = p (dp - sum_j dp p)   fp32 from the unrounded p, then rounded to bf16
 //   dq = ds k * scale,   dk = ds^T q * scale   fp32 sums
 //
 // and writes dq | dk | dv as bf16 into the packed [B, S, 3D] layout the in_proj
@@ -15,267 +15,206 @@
 // `_bwd_kernel_fused3` and the XLA hybrid behind `bwd_fuse3` compute the same
 // function for the TPU's matrix unit and are not carried over.
 //
-// What bounds it on an H100: at S <= 128 and hd = 64 a (sample, head) pair is
-// ~5 S^2 hd multiply-adds over 8 S hd bf16 values of device memory (q, k, v,
-// do in; dq, dk, dv out), so, like K2-fwd, its whole working set lives in one
-// SM's shared memory and the body is bound by shared-memory bandwidth on the
-// CUDA cores. One block owns one (sample, head). It stages q, k, v and do as
-// fp32 (row stride 65 floats, so the per-lane key rows fall in distinct
-// banks), 133 KB at S = 128, and p and ds as bf16 [S, S] (64 KB at S = 128:
-// 197 KB in all, under the 227 KB a block can have, hence the dynamic
-// shared-memory attribute). Pass 1 walks query rows, four per warp: logits
-// and dp with the lane owning keys lane, lane + 32, ..., the softmax and ds in
-// registers, the p and ds rows to shared memory, then dq from the ds row.
-// Pass 2 walks key rows, four per warp, with the lane owning two columns, and
-// sums dk and dv over the query rows (from the diagonal on, when causal).
-// Tensor-core tiles are the next step once the H100 times show where it stands.
-#include "common.cuh"
+// What bounds it on an H100: a (sample, head) is 10 S^2 64 flops over 8 S 64
+// bf16 values of device memory (q, k, v, do in; dq, dk, dv out), so it is
+// bound by bytes (at B = 256, S = 50, H = 12: 137.6 MB, 41 us at 3.35 TB/s,
+// against 1.2 GFLOP). The design, as K2-fwd's (tiny_attention.cuh):
+// - one block per (sample, head), kT = S16 / 16 warps; q, k, v and do staged
+//   by cp.async as bf16 [S16][72] tiles (v and do a second copy group that
+//   lands while q k^T and the softmax run), and p and ds as bf16
+//   [S16][S16 + 8]: 54 KB at S16 = 64, so 4 blocks fit an SM;
+// - pass 1, a warp per 16 query rows: q k^T and do v^T on the tensor cores,
+//   the softmax in registers, D = sum_j dp p from the fp32 p, ds in fp32, then
+//   p and ds rounded to bf16, stored to shared memory, and dq = ds k from the
+//   registers;
+// - pass 2, after one barrier, a warp per 16 key rows: dv = p^T do and
+//   dk = ds^T q, their A fragments read transposed from the stored p and ds
+//   by ldmatrix.trans;
+// - with the causal mask, key tiles after a warp's last query are skipped in
+//   pass 1 and query tiles before its first key in pass 2; tiles wholly past
+//   S too.
+// Every output element has one owner that sums in a fixed order: no float
+// atomics, and two calls agree bit for bit.
+#include "tiny_attention.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;
-constexpr int kLds = kHeadDim + 1;    // padded fp32 row stride in shared memory
-constexpr int kWarps = 4;
-constexpr int kRows = 4;              // rows a warp computes together
-constexpr int kMaxSeq = 128;
-constexpr int kSlots = kMaxSeq / 32;  // keys per lane
+using namespace ilvlm;
+using namespace ilvlm::tiny;
 
-__host__ __device__ int p_stride(int seq) { return (seq + 7) & ~7; }
-
-size_t smem_bytes(int seq) {
-  return size_t(4) * seq * kLds * sizeof(float) +
-         size_t(2) * seq * p_stride(seq) * sizeof(__nv_bfloat16);
+template <int kT>
+__host__ __device__ constexpr int p_ld() {
+  return 16 * kT + 8;  // bf16 row stride of the p and ds tiles
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+template <int kT>
+constexpr size_t bwd_smem_bytes() {
+  return (size_t(4) * 16 * kT * kLd + size_t(2) * 16 * kT * p_ld<kT>()) *
+         sizeof(__nv_bfloat16);
+}
+
+template <int kT>
+__global__ void __launch_bounds__(kT * 32)
 tiny_attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
                           const __nv_bfloat16* __restrict__ bias3,
                           const __nv_bfloat16* __restrict__ dout,
-                          __nv_bfloat16* __restrict__ dqkv,
-                          int seq, int heads, int causal, float scale) {
-  extern __shared__ float smem[];
-  float* const qs = smem;
-  float* const ks = qs + seq * kLds;
-  float* const vs = ks + seq * kLds;
-  float* const dos = vs + seq * kLds;
-  const int ldp = p_stride(seq);
-  __nv_bfloat16* const ps = reinterpret_cast<__nv_bfloat16*>(dos + seq * kLds);
-  __nv_bfloat16* const dss = ps + seq * ldp;
+                          __nv_bfloat16* __restrict__ dqkv, int seq, int heads, int causal,
+                          float scale) {
+  constexpr int kS16 = 16 * kT;
+  constexpr int kNt = 2 * kT;
+  constexpr int kLdp = p_ld<kT>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* const qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* const ks = qs + kS16 * kLd;
+  __nv_bfloat16* const vs = ks + kS16 * kLd;
+  __nv_bfloat16* const dos = vs + kS16 * kLd;
+  __nv_bfloat16* const ps = dos + kS16 * kLd;  // [query][key]
+  __nv_bfloat16* const dss = ps + kS16 * kLdp;
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int d_model = heads * kHeadDim;
-  const size_t row_stride = size_t(3) * d_model;
-  const __nv_bfloat16* const src = qkv + size_t(b) * seq * row_stride;
-  const __nv_bfloat16* const dsrc = dout + size_t(b) * seq * d_model;
-  __nv_bfloat16* const dst_base = dqkv + size_t(b) * seq * row_stride + h * kHeadDim;
-
-  // Stage q, k, v (bias added in bf16) and do of head h as fp32.
-  constexpr int kPairs = kHeadDim / 2;
-  const int per_part = seq * kPairs;
-  for (int idx = threadIdx.x; idx < 4 * per_part; idx += blockDim.x) {
-    const int part = idx / per_part;
-    const int rem = idx - part * per_part;
-    const int s = rem / kPairs;
-    const int c = (rem - s * kPairs) * 2;
-    __nv_bfloat162 v2;
-    if (part < 3) {
-      const int col = part * d_model + h * kHeadDim + c;
-      v2 = *reinterpret_cast<const __nv_bfloat162*>(src + s * row_stride + col);
-      if (bias3 != nullptr) v2 = __hadd2(v2, *reinterpret_cast<const __nv_bfloat162*>(bias3 + col));
-    } else {
-      v2 = *reinterpret_cast<const __nv_bfloat162*>(dsrc + size_t(s) * d_model + h * kHeadDim + c);
-    }
-    const float2 f = __bfloat1622float2(v2);
-    float* const dst = smem + part * seq * kLds + s * kLds + c;
-    dst[0] = f.x;
-    dst[1] = f.y;
+  const long long row_stride = 3LL * d_model;
+  // two copy groups: q and k, then v and do, which land while q k^T runs
+  const __nv_bfloat16* const src = qkv + b * seq * row_stride + h * kHeadDim;
+  stage_async<kS16>(src, row_stride, seq, qs);
+  stage_async<kS16>(src + d_model, row_stride, seq, ks);
+  cp_async_commit();
+  stage_async<kS16>(src + 2 * d_model, row_stride, seq, vs);
+  stage_async<kS16>(dout + b * seq * static_cast<long long>(d_model) + h * kHeadDim, d_model,
+                    seq, dos);
+  cp_async_commit();
+  cp_async_wait<1>();
+  if (bias3 != nullptr) {
+    add_bias<kS16>(qs, bias3 + h * kHeadDim, seq);
+    add_bias<kS16>(ks, bias3 + d_model + h * kHeadDim, seq);
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int w0 = (threadIdx.x >> 5) * 16;  // this warp's first query row, then key row
+  __nv_bfloat16* const dst = dqkv + b * seq * row_stride + h * kHeadDim;
 
-  // Pass 1: query rows i0 .. i0 + 3 -> p and ds rows, and dq.
-  for (int i0 = warp * kRows; i0 < seq; i0 += kWarps * kRows) {
-    const int kend = causal ? min(seq, i0 + kRows) : seq;  // keys past kend: masked
-    const int slots = (kend + 31) >> 5;
-
-    float sc[kRows][kSlots], dp[kRows][kSlots];
+  // Pass 1: query rows w0 .. w0 + 15 -> p and ds rows, and dq.
+  {
+    const int nt_end = key_tiles(w0, seq, causal != 0, kNt);
+    float s[kNt][4], dp[kNt][4];
+    {
+      uint32_t a[4][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
+      for (int kk = 0; kk < 4; ++kk) load_a(a[kk], qs, kLd, w0, kk * 16);
+      product_rows<kNt>(a, ks, nt_end, s);
+      softmax_rows<kNt>(s, w0, seq, causal != 0, scale, nt_end);  // s = p, fp32
+      cp_async_wait<0>();
+      if (bias3 != nullptr) add_bias<kS16>(vs, bias3 + 2 * d_model + h * kHeadDim, seq);
+      __syncthreads();
 #pragma unroll
-      for (int m = 0; m < kSlots; ++m) sc[r][m] = dp[r][m] = 0.f;
-
-    const float* qrow[kRows];
-    const float* drow[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      qrow[r] = qs + min(i0 + r, seq - 1) * kLds;
-      drow[r] = dos + min(i0 + r, seq - 1) * kLds;
+      for (int kk = 0; kk < 4; ++kk) load_a(a[kk], dos, kLd, w0, kk * 16);
+      product_rows<kNt>(a, vs, nt_end, dp);
     }
-    const float* krow[kSlots];
-    const float* vrow[kSlots];
+    float dd[2] = {0.f, 0.f};  // D = sum_j dp p, from the unrounded p
 #pragma unroll
-    for (int m = 0; m < kSlots; ++m) {
-      krow[m] = ks + min(lane + 32 * m, seq - 1) * kLds;
-      vrow[m] = vs + min(lane + 32 * m, seq - 1) * kLds;
-    }
+    for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dd[e >> 1] += dp[nt][e] * s[nt][e];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) dd[i] = quad_sum(dd[i]);
 
-#pragma unroll 4
-    for (int d = 0; d < kHeadDim; ++d) {
-      float qv[kRows], dv[kRows];
+    // p and ds as bf16 pairs (rows g and g + 8 of each key tile), stored
+    // whole (zeros where masked or skipped) for pass 2
+    uint32_t db[kNt][2];
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        qv[r] = qrow[r][d];
-        dv[r] = drow[r][d];
-      }
+    for (int nt = 0; nt < kNt; ++nt) {
 #pragma unroll
-      for (int m = 0; m < kSlots; ++m) {
-        if (m < slots) {
-          const float kv = krow[m][d];
-          const float vv = vrow[m][d];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            sc[r][m] = fmaf(qv[r], kv, sc[r][m]);
-            dp[r][m] = fmaf(dv[r], vv, dp[r][m]);
-          }
-        }
+      for (int half = 0; half < 2; ++half) {
+        const float p0 = s[nt][2 * half], p1 = s[nt][2 * half + 1];
+        db[nt][half] = pack_bf16(p0 * (dp[nt][2 * half] - dd[half]),
+                                 p1 * (dp[nt][2 * half + 1] - dd[half]));
+        const int off = (w0 + g + 8 * half) * kLdp + nt * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(ps + off) = pack_bf16(p0, p1);
+        *reinterpret_cast<uint32_t*>(dss + off) = db[nt][half];
       }
     }
 
+    // dq = ds k * scale
+    float acc[8][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      if (i >= seq) continue;  // a row past the end: nothing stored
-      float mx = -INFINITY;
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int m = 0; m < kSlots; ++m) {
-        const int j = lane + 32 * m;
-        const bool live = m < slots && j < seq && (!causal || j <= i);
-        const float logit = live ? sc[r][m] * scale : -INFINITY;
-        sc[r][m] = logit;
-        mx = fmaxf(mx, logit);
-      }
-      mx = ilvlm::warp_max(mx);  // key 0 is never masked, so mx is finite
-      float sum = 0.f;
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
 #pragma unroll
-      for (int m = 0; m < kSlots; ++m) {
-        const float e = sc[r][m] == -INFINITY ? 0.f : expf(sc[r][m] - mx);
-        sc[r][m] = e;
-        sum += e;
-      }
-      sum = ilvlm::warp_sum(sum);
-      float pdp = 0.f;
-#pragma unroll
-      for (int m = 0; m < kSlots; ++m) {
-        sc[r][m] = sc[r][m] / sum;  // p; exactly 0 where masked
-        pdp += dp[r][m] * sc[r][m];
-      }
-      pdp = ilvlm::warp_sum(pdp);
-      __nv_bfloat16* const prow = ps + i * ldp;
-      __nv_bfloat16* const dsrow = dss + i * ldp;
-#pragma unroll
-      for (int m = 0; m < kSlots; ++m) {
-        const int j = lane + 32 * m;
-        if (j < seq) {  // the whole row, masked keys as 0, for pass 2
-          const float p = sc[r][m];
-          prow[j] = __float2bfloat16(p);
-          dsrow[j] = __float2bfloat16(p == 0.f ? 0.f : p * (dp[r][m] - pdp));
-        }
-      }
+    for (int kk = 0; kk < kT; ++kk) {
+      if (2 * kk >= nt_end) continue;
+      const uint32_t a[4] = {db[2 * kk][0], db[2 * kk][1], db[2 * kk + 1][0], db[2 * kk + 1][1]};
+      accumulate_rows(acc, a, ks, kk * 16);
     }
-    __syncwarp();
-
-    // dq = ds k * scale; lane owns columns lane and lane + 32
-    float o[kRows][2];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) o[r][0] = o[r][1] = 0.f;
-    for (int j = 0; j < kend; ++j) {
-      const float k0 = ks[j * kLds + lane];
-      const float k1 = ks[j * kLds + lane + 32];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = i0 + r;
-        const float dsv = i < seq ? __bfloat162float(dss[i * ldp + j]) : 0.f;
-        o[r][0] = fmaf(dsv, k0, o[r][0]);
-        o[r][1] = fmaf(dsv, k1, o[r][1]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      if (i < seq) {
-        __nv_bfloat16* const dst = dst_base + size_t(i) * row_stride;
-        dst[lane] = __float2bfloat16(o[r][0] * scale);
-        dst[lane + 32] = __float2bfloat16(o[r][1] * scale);
-      }
-    }
+    store_rows(acc, scale, dst, row_stride, w0, seq);
   }
   __syncthreads();  // every p and ds row is in shared memory
 
-  // Pass 2: key rows j0 .. j0 + 3 -> dk = ds^T q * scale, dv = p^T do.
-  for (int j0 = warp * kRows; j0 < seq; j0 += kWarps * kRows) {
-    float ak[kRows][2], av[kRows][2];
-    int jc[kRows];
+  // Pass 2: key rows w0 .. w0 + 15 -> dv = p^T do, dk = ds^T q * scale. With
+  // the causal mask, p and ds are 0 for the queries before the warp's first key.
+  float adv[8][4], adk[8][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      ak[r][0] = ak[r][1] = av[r][0] = av[r][1] = 0.f;
-      jc[r] = min(j0 + r, seq - 1);
-    }
-    // with the causal mask p and ds are 0 above the diagonal
-    for (int i = causal ? j0 : 0; i < seq; ++i) {
-      const float q0 = qs[i * kLds + lane];
-      const float q1 = qs[i * kLds + lane + 32];
-      const float d0 = dos[i * kLds + lane];
-      const float d1 = dos[i * kLds + lane + 32];
-      const __nv_bfloat16* const prow = ps + i * ldp;
-      const __nv_bfloat16* const dsrow = dss + i * ldp;
+  for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float pv = __bfloat162float(prow[jc[r]]);
-        const float dsv = __bfloat162float(dsrow[jc[r]]);
-        ak[r][0] = fmaf(dsv, q0, ak[r][0]);
-        ak[r][1] = fmaf(dsv, q1, ak[r][1]);
-        av[r][0] = fmaf(pv, d0, av[r][0]);
-        av[r][1] = fmaf(pv, d1, av[r][1]);
-      }
-    }
+    for (int e = 0; e < 4; ++e) adv[nt][e] = adk[nt][e] = 0.f;
+  const int kk_begin = causal ? w0 >> 4 : 0;
+  const int kk_end = (seq + 15) >> 4;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int j = j0 + r;
-      if (j < seq) {
-        __nv_bfloat16* const dst = dst_base + size_t(j) * row_stride;
-        dst[d_model + lane] = __float2bfloat16(ak[r][0] * scale);
-        dst[d_model + lane + 32] = __float2bfloat16(ak[r][1] * scale);
-        dst[2 * d_model + lane] = __float2bfloat16(av[r][0]);
-        dst[2 * d_model + lane + 32] = __float2bfloat16(av[r][1]);
-      }
-    }
+  for (int kk = 0; kk < kT; ++kk) {
+    if (kk < kk_begin || kk >= kk_end) continue;
+    uint32_t a[4];
+    load_a_t(a, ps, kLdp, w0, kk * 16);
+    accumulate_rows(adv, a, dos, kk * 16);
+    load_a_t(a, dss, kLdp, w0, kk * 16);
+    accumulate_rows(adk, a, qs, kk * 16);
   }
+  store_rows(adk, scale, dst + d_model, row_stride, w0, seq);
+  store_rows(adv, 1.f, dst + 2 * d_model, row_stride, w0, seq);
+}
+
+template <int kT>
+cudaError_t launch(const __nv_bfloat16* qkv, const __nv_bfloat16* bias3,
+                   const __nv_bfloat16* dout, __nv_bfloat16* dqkv, int batch, int seq, int heads,
+                   int causal, float scale, cudaStream_t stream) {
+  static unsigned long long configured = 0;
+  constexpr size_t smem = bwd_smem_bytes<kT>();
+  cudaError_t err = allow_smem(tiny_attention_bwd_kernel<kT>, smem, configured);
+  if (err != cudaSuccess) return err;
+  tiny_attention_bwd_kernel<kT><<<dim3(heads, batch), kT * 32, smem, stream>>>(
+      qkv, bias3, dout, dqkv, seq, heads, causal, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // qkv: [batch, seq, 3 * heads * 64] bf16, the pre-bias packed projection;
 // bias3: [3 * heads * 64] bf16 or null; dout: [batch, seq, heads * 64] bf16;
-// dqkv: [batch, seq, 3 * heads * 64] bf16. All contiguous. causal != 0 masks
-// keys above the diagonal. Launches on `stream`, does not synchronise.
+// dqkv: [batch, seq, 3 * heads * 64] bf16. All contiguous and 16-byte
+// aligned. causal != 0 masks keys above the diagonal. Launches on `stream`,
+// does not synchronise.
 ILVLM_API int tiny_attention_bwd(const void* qkv, const void* bias3, const void* dout,
                                  void* dqkv, int batch, int seq, int heads, int causal,
                                  float scale, void* stream) {
   if (batch < 1 || batch > 65535 || heads < 1 || seq < 1 || seq > kMaxSeq) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(tiny_attention_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_bytes(kMaxSeq)));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(heads, batch);
-  tiny_attention_bwd_kernel<<<grid, kWarps * 32, smem_bytes(seq),
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(bias3),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<__nv_bfloat16*>(dqkv), seq, heads,
-      causal, scale);
-  return cudaGetLastError();
+  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
+  const auto* bias = static_cast<const __nv_bfloat16*>(bias3);
+  const auto* g = static_cast<const __nv_bfloat16*>(dout);
+  auto* d = static_cast<__nv_bfloat16*>(dqkv);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((seq + 15) / 16) {
+    case 1: return launch<1>(q, bias, g, d, batch, seq, heads, causal, scale, st);
+    case 2: return launch<2>(q, bias, g, d, batch, seq, heads, causal, scale, st);
+    case 3: return launch<3>(q, bias, g, d, batch, seq, heads, causal, scale, st);
+    case 4: return launch<4>(q, bias, g, d, batch, seq, heads, causal, scale, st);
+    case 5: return launch<5>(q, bias, g, d, batch, seq, heads, causal, scale, st);
+    case 6: return launch<6>(q, bias, g, d, batch, seq, heads, causal, scale, st);
+    case 7: return launch<7>(q, bias, g, d, batch, seq, heads, causal, scale, st);
+    default: return launch<8>(q, bias, g, d, batch, seq, heads, causal, scale, st);
+  }
 }

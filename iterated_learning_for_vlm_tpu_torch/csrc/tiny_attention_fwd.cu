@@ -1,196 +1,147 @@
 // K2-fwd: multi-head self-attention for tiny sequences, read from packed QKV.
 //
 // Replaces the TPU kernel iterated_learning_for_vlm_tpu/ops/fused_attention.py
-// `_fwd_kernel` (launched by `_fwd_local`). Same function: for each sample and
-// head, softmax(q k^T * hd^-1/2 [+ causal mask]) v, read straight from the
-// [B, S, 3D] packed projection (q | k | v column blocks, torch in_proj order)
-// with the in_proj bias optionally absorbed, written as [B, S, D] at the
-// head's column offset. Numerics follow the unfused path: fp32 logits and
-// softmax, p rounded to the operand dtype (bf16), p @ v accumulated in fp32.
+// `_fwd_kernel` (l.135, launched by `_fwd_local`). Same function: for each
+// sample and head, softmax(q k^T * hd^-1/2 [+ causal mask]) v, read straight
+// from the [B, S, 3D] packed projection (q | k | v column blocks, torch
+// in_proj order) with the in_proj bias optionally absorbed (added in bf16),
+// written as [B, S, D] at the head's column offset. Numerics follow the
+// unfused path: fp32 logits and softmax, p normalised in fp32 and then
+// rounded to bf16, p v summed in fp32, one cast to bf16.
 //
-// What bounds it on an H100: at S <= 128 and hd = 64 a (sample, head) pair is
-// ~2 S^2 hd multiply-adds over 4 S hd bf16 values, so its whole working set
-// fits in one SM's shared memory and device-memory traffic is one read of
-// q/k/v and one write of the output. The TPU kernel's block-diagonal head and
-// sample grouping, group mask and sublane padding exist to feed a 128x128
-// systolic array and are not carried over. Here one block owns one
-// (sample, head): it stages q/k/v once in shared memory as fp32 (row stride
-// 65 floats, so the per-lane key rows fall in distinct banks), and each warp
-// computes four query rows at a time so every key value loaded from shared
-// memory feeds four multiply-adds. The body runs on the CUDA cores; shared
-// memory bandwidth, not device memory, is its limit. Tensor-core tiles
-// (mma/wgmma) are the next step once the H100 times show where it stands.
-#include "common.cuh"
+// What bounds it on an H100: a (sample, head) is 4 S^2 64 flops over 4 S 64
+// bf16 values of device memory, so it is bound by bytes (at B = 256, S = 50,
+// H = 12: 78.6 MB, 23.5 us at 3.35 TB/s, against 0.49 GFLOP, 0.5 us at
+// 989 TFLOP/s). The design keeps the work off the critical path of the loads:
+// - one block per (sample, head), S padded to S16 = 16 kT, kT warps of 16
+//   query rows each, so the whole head is one tile set and no loop runs over
+//   keys;
+// - q, k and v land in shared memory by 16-byte cp.async copies (zero-filled
+//   past S) as bf16 tiles with a 72-element row stride, 9 KB each at S16 = 64,
+//   so 8 blocks fit an SM and their loads overlap each other's math; v is a
+//   second copy group that lands while q k^T and the softmax run; the bias is
+//   added once a group lands;
+// - q k^T and p v run on the tensor cores (mma.sync m16n8k16 from ldmatrix
+//   fragments); a row of logits (<= 128 keys) stays in registers as C
+//   fragments, its max and sum are quad shuffles, the exponentials are
+//   exp2f of base-2 logits and the division one reciprocal per row (the
+//   softmax's instructions rivalled the loads), and p goes from the C layout
+//   straight into the A fragments of p v;
+// - with the causal mask, the key tiles above a warp's diagonal are skipped
+//   in both products, and so are tiles wholly past S.
+#include "tiny_attention.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;          // head width on every main-path tower
-constexpr int kLds = kHeadDim + 1;    // padded fp32 row stride in shared memory
-constexpr int kWarps = 4;
-constexpr int kRows = 4;              // query rows a warp computes together
-constexpr int kMaxSeq = 128;          // towers with S > 128 take the plain path
-constexpr int kSlots = kMaxSeq / 32;  // keys per lane
+using namespace ilvlm;
+using namespace ilvlm::tiny;
 
-size_t smem_bytes(int seq) {
-  return (size_t(3) * seq * kLds + size_t(kWarps) * kRows * kMaxSeq) * sizeof(float);
+template <int kT>
+constexpr size_t fwd_smem_bytes() {
+  return size_t(3) * 16 * kT * kLd * sizeof(__nv_bfloat16);
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+template <int kT>
+__global__ void __launch_bounds__(kT * 32)
 tiny_attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
                           const __nv_bfloat16* __restrict__ bias3,
-                          __nv_bfloat16* __restrict__ out,
-                          int seq, int heads, int causal, float scale) {
-  extern __shared__ float smem[];
-  float* const qs = smem;
-  float* const ks = qs + seq * kLds;
-  float* const vs = ks + seq * kLds;
-  float* const ps = vs + seq * kLds;  // [kWarps][kRows][kMaxSeq] softmax rows
+                          __nv_bfloat16* __restrict__ out, int seq, int heads, int causal,
+                          float scale) {
+  constexpr int kS16 = 16 * kT;
+  constexpr int kNt = 2 * kT;  // 8-key tiles of a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* const qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* const ks = qs + kS16 * kLd;
+  __nv_bfloat16* const vs = ks + kS16 * kLd;
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int d_model = heads * kHeadDim;
-  const size_t row_stride = size_t(3) * d_model;
-  const __nv_bfloat16* const src = qkv + size_t(b) * seq * row_stride;
-
-  // Stage q, k, v of head h as fp32; a warp reads one 128-byte row slice.
-  // The absorbed in_proj bias is added in bf16, the operand dtype, as the
-  // unfused path adds it after the projection.
-  constexpr int kPairs = kHeadDim / 2;
-  const int per_part = seq * kPairs;
-  for (int idx = threadIdx.x; idx < 3 * per_part; idx += blockDim.x) {
-    const int part = idx / per_part;
-    const int rem = idx - part * per_part;
-    const int s = rem / kPairs;
-    const int c = (rem - s * kPairs) * 2;
-    const int col = part * d_model + h * kHeadDim + c;
-    __nv_bfloat162 v2 = *reinterpret_cast<const __nv_bfloat162*>(src + s * row_stride + col);
-    if (bias3 != nullptr) v2 = __hadd2(v2, *reinterpret_cast<const __nv_bfloat162*>(bias3 + col));
-    const float2 f = __bfloat1622float2(v2);
-    float* const dst = smem + part * seq * kLds + s * kLds + c;
-    dst[0] = f.x;
-    dst[1] = f.y;
+  const long long row_stride = 3LL * d_model;
+  // two copy groups: q and k, then v, which lands while q k^T runs
+  const __nv_bfloat16* const src = qkv + b * seq * row_stride + h * kHeadDim;
+  stage_async<kS16>(src, row_stride, seq, qs);
+  stage_async<kS16>(src + d_model, row_stride, seq, ks);
+  cp_async_commit();
+  stage_async<kS16>(src + 2 * d_model, row_stride, seq, vs);
+  cp_async_commit();
+  cp_async_wait<1>();
+  if (bias3 != nullptr) {
+    add_bias<kS16>(qs, bias3 + h * kHeadDim, seq);
+    add_bias<kS16>(ks, bias3 + d_model + h * kHeadDim, seq);
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* const pw = ps + warp * kRows * kMaxSeq;
-  __nv_bfloat16* const dst_base = out + size_t(b) * seq * d_model + h * kHeadDim;
+  const int row0 = (threadIdx.x >> 5) * 16;  // this warp's first query row
+  const int nt_end = key_tiles(row0, seq, causal != 0, kNt);
 
-  for (int i0 = warp * kRows; i0 < seq; i0 += kWarps * kRows) {
-    // keys at or past kend are masked for every row of this group
-    const int kend = causal ? min(seq, i0 + kRows) : seq;
-    const int slots = (kend + 31) >> 5;
-
-    float acc[kRows][kSlots];
+  float s[kNt][4];
+  {
+    uint32_t qa[4][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int m = 0; m < kSlots; ++m) acc[r][m] = 0.f;
-
-    const float* qrow[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) qrow[r] = qs + min(i0 + r, seq - 1) * kLds;
-    const float* krow[kSlots];
-#pragma unroll
-    for (int m = 0; m < kSlots; ++m) krow[m] = ks + min(lane + 32 * m, seq - 1) * kLds;
-
-    // logits: lane owns keys lane, lane+32, ...; fp32 dot over hd
-#pragma unroll 8
-    for (int d = 0; d < kHeadDim; ++d) {
-      float qv[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) qv[r] = qrow[r][d];
-#pragma unroll
-      for (int m = 0; m < kSlots; ++m) {
-        if (m < slots) {
-          const float kv = krow[m][d];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) acc[r][m] = fmaf(qv[r], kv, acc[r][m]);
-        }
-      }
-    }
-
-    // fp32 softmax per row, then p rounded to bf16 for the value product
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      float* const prow = pw + r * kMaxSeq;
-      if (i >= seq) {  // a row past the end: zero p, never stored
-        for (int j = lane; j < kend; j += 32) prow[j] = 0.f;
-        continue;
-      }
-      float mx = -INFINITY;
-#pragma unroll
-      for (int m = 0; m < kSlots; ++m) {
-        const int j = lane + 32 * m;
-        const bool live = m < slots && j < seq && (!causal || j <= i);
-        const float logit = live ? acc[r][m] * scale : -INFINITY;
-        acc[r][m] = logit;
-        mx = fmaxf(mx, logit);
-      }
-      mx = ilvlm::warp_max(mx);  // key 0 is never masked, so mx is finite
-      float sum = 0.f;
-#pragma unroll
-      for (int m = 0; m < kSlots; ++m) {
-        const float e = acc[r][m] == -INFINITY ? 0.f : expf(acc[r][m] - mx);
-        acc[r][m] = e;
-        sum += e;
-      }
-      sum = ilvlm::warp_sum(sum);
-#pragma unroll
-      for (int m = 0; m < kSlots; ++m) {
-        const int j = lane + 32 * m;
-        if (j < kend) prow[j] = __bfloat162float(__float2bfloat16(acc[r][m] / sum));
-      }
-    }
-    __syncwarp();
-
-    // out = p @ v, fp32 accumulation; lane owns columns lane and lane + 32
-    float o[kRows][2];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) o[r][0] = o[r][1] = 0.f;
-    for (int j = 0; j < kend; ++j) {
-      const float v0 = vs[j * kLds + lane];
-      const float v1 = vs[j * kLds + lane + 32];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float p = pw[r * kMaxSeq + j];
-        o[r][0] = fmaf(p, v0, o[r][0]);
-        o[r][1] = fmaf(p, v1, o[r][1]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      if (i < seq) {
-        __nv_bfloat16* const dst = dst_base + size_t(i) * d_model;
-        dst[lane] = __float2bfloat16(o[r][0]);
-        dst[lane + 32] = __float2bfloat16(o[r][1]);
-      }
-    }
-    __syncwarp();  // pw is rewritten by the next row group
+    for (int kk = 0; kk < 4; ++kk) load_a(qa[kk], qs, kLd, row0, kk * 16);
+    product_rows<kNt>(qa, ks, nt_end, s);
   }
+  softmax_rows<kNt>(s, row0, seq, causal != 0, scale, nt_end);
+  cp_async_wait<0>();
+  if (bias3 != nullptr) add_bias<kS16>(vs, bias3 + 2 * d_model + h * kHeadDim, seq);
+  __syncthreads();
+
+  // out = p v: p's C fragments of key tiles 2kk, 2kk + 1 are the A fragments
+  // of k-step kk, rounded to bf16
+  float o[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kT; ++kk) {
+    if (2 * kk >= nt_end) continue;
+    const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                           pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                           pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                           pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    accumulate_rows(o, a, vs, kk * 16);
+  }
+  store_rows(o, 1.f, out + b * seq * static_cast<long long>(d_model) + h * kHeadDim, d_model,
+             row0, seq);
+}
+
+template <int kT>
+cudaError_t launch(const __nv_bfloat16* qkv, const __nv_bfloat16* bias3, __nv_bfloat16* out,
+                   int batch, int seq, int heads, int causal, float scale, cudaStream_t stream) {
+  static unsigned long long configured = 0;
+  constexpr size_t smem = fwd_smem_bytes<kT>();
+  cudaError_t err = allow_smem(tiny_attention_fwd_kernel<kT>, smem, configured);
+  if (err != cudaSuccess) return err;
+  tiny_attention_fwd_kernel<kT><<<dim3(heads, batch), kT * 32, smem, stream>>>(
+      qkv, bias3, out, seq, heads, causal, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// qkv: [batch, seq, 3 * heads * 64] bf16, contiguous; bias3: [3 * heads * 64]
-// bf16 or null; out: [batch, seq, heads * 64] bf16. causal != 0 masks keys
-// above the diagonal. Launches on `stream`, does not synchronise.
+// qkv: [batch, seq, 3 * heads * 64] bf16, contiguous, 16-byte aligned;
+// bias3: [3 * heads * 64] bf16 or null; out: [batch, seq, heads * 64] bf16.
+// causal != 0 masks keys above the diagonal. Launches on `stream`, does not
+// synchronise.
 ILVLM_API int tiny_attention_fwd(const void* qkv, const void* bias3, void* out, int batch,
                                  int seq, int heads, int causal, float scale, void* stream) {
   if (batch < 1 || batch > 65535 || heads < 1 || seq < 1 || seq > kMaxSeq) {
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(tiny_attention_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_bytes(kMaxSeq)));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(heads, batch);
-  tiny_attention_fwd_kernel<<<grid, kWarps * 32, smem_bytes(seq),
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(bias3),
-      static_cast<__nv_bfloat16*>(out), seq, heads, causal, scale);
-  return cudaGetLastError();
+  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
+  const auto* bias = static_cast<const __nv_bfloat16*>(bias3);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((seq + 15) / 16) {
+    case 1: return launch<1>(q, bias, o, batch, seq, heads, causal, scale, st);
+    case 2: return launch<2>(q, bias, o, batch, seq, heads, causal, scale, st);
+    case 3: return launch<3>(q, bias, o, batch, seq, heads, causal, scale, st);
+    case 4: return launch<4>(q, bias, o, batch, seq, heads, causal, scale, st);
+    case 5: return launch<5>(q, bias, o, batch, seq, heads, causal, scale, st);
+    case 6: return launch<6>(q, bias, o, batch, seq, heads, causal, scale, st);
+    case 7: return launch<7>(q, bias, o, batch, seq, heads, causal, scale, st);
+    default: return launch<8>(q, bias, o, batch, seq, heads, causal, scale, st);
+  }
 }

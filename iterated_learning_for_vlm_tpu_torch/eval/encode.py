@@ -10,7 +10,7 @@ CLIP to its tower embeddings (``encode_image``, ``encode_text(...)["embed"]``).
 ``image_batch`` and ``text_batch`` take and return device tensors (one fixed
 batch); ``encode_images`` / ``encode_texts_tokens`` take host numpy arrays of
 any length. ``encode_texts`` tokenizes strings with the given tokenizer, or
-with the JAX package's host tokenizer imported on first use.
+with the port's own CLIP tokenizer (``data/tokenizer.py``) on first use.
 """
 from __future__ import annotations
 
@@ -137,7 +137,7 @@ class TorchEncoder:
 
     def encode_texts(self, texts: Sequence[str], normalize: Optional[bool] = None) -> np.ndarray:
         if self.tokenizer is None:
-            from iterated_learning_for_vlm_tpu.data.tokenizer import get_tokenizer
+            from ..data.tokenizer import get_tokenizer
 
             self.tokenizer = self._checked(get_tokenizer())
         tokens, pad_mask = self.tokenizer(list(texts), context_length=self.context_length)

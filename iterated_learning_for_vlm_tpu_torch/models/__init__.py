@@ -4,7 +4,9 @@ Counterpart of ``iterated_learning_for_vlm_tpu/models/__init__.py``:
 ``model_entry(config)`` takes the same nested config mapping (``type`` and
 ``kwargs`` with ``image_encode`` / ``text_encode`` / ``fdt`` blocks and the
 tower-wide knobs) and returns an ``nn.Module`` whose parameters live on
-``device`` and are drawn from ``generator``. Ported so far: the baseline
+``device`` and are drawn from ``generator``. With no ``device`` the model is
+built on the CUDA card, and building raises where there is none: the CPU
+takes it only when asked (``device="cpu"``). Ported so far: the baseline
 ``clip_vitb32`` and ``clip_vitb16`` and ``clip_fdt_vitb32``; the other JAX
 model types raise a ``KeyError`` that says so.
 """
@@ -23,7 +25,8 @@ from .vit import VisionConfig, VisionTransformer, vit_b16, vit_b32
 
 __all__ = [
     "CLIP", "CLIPFDT", "FDTConfig", "QueryModel", "TextConfig", "TextTransformer",
-    "VisionConfig", "VisionTransformer", "model_entry", "sparsemax", "sparsemax_bisect",
+    "VisionConfig", "VisionTransformer", "model_entry", "resolve_device", "sparsemax",
+    "sparsemax_bisect",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -64,12 +67,23 @@ def _common(kwargs: Mapping[str, Any]):
     return img_kw, txt_kw, dtype
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the CUDA card when it is None; raises where CUDA is
+    absent and no device was named, so nothing lands on the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port builds its models on the GPU; "
+                           "pass device='cpu' to build on the CPU")
+    return torch.device("cuda")
+
+
 def _clip(vision_factory, kw, device) -> CLIP:
     """The ``clip`` block (``use_allgather``) is read by nothing: the loss
     gathers the global batch."""
     img_kw, txt_kw, dtype = _common(kw)
     return CLIP(vision_cfg=vision_factory(**img_kw), text_cfg=text_base(**txt_kw),
-                dtype=dtype, device=device)
+                dtype=dtype, device=resolve_device(device))
 
 
 def clip_vitb32(device=None, **kw) -> CLIP:
@@ -85,7 +99,7 @@ def clip_fdt_vitb32(device=None, **kw) -> CLIPFDT:
     fdt_kw = dict(kw.get("fdt", {}))
     fdt_kw.pop("use_allgather", None)
     return CLIPFDT(vision_cfg=vit_b32(**img_kw), text_cfg=text_base(**txt_kw),
-                   fdt_cfg=FDTConfig(**fdt_kw), dtype=dtype, device=device)
+                   fdt_cfg=FDTConfig(**fdt_kw), dtype=dtype, device=resolve_device(device))
 
 
 _REGISTRY = {"clip_vitb32": clip_vitb32, "clip_vitb16": clip_vitb16,
@@ -94,8 +108,9 @@ _REGISTRY = {"clip_vitb32": clip_vitb32, "clip_vitb16": clip_vitb16,
 
 def model_entry(config, device=None, generator: Optional[torch.Generator] = None):
     """``config``: a mapping with ``type`` and ``kwargs`` (reference schema).
-    Parameters are created on ``device`` and drawn from ``generator`` (a
-    generator on that device; default: seeded with 0)."""
+    Parameters are created on ``device`` (default: the CUDA card, see
+    :func:`resolve_device`) and drawn from ``generator`` (a generator on that
+    device; default: seeded with 0)."""
     mtype = config["type"] if isinstance(config, Mapping) else config.type
     kwargs = dict(config.get("kwargs", {}))
     if mtype not in _REGISTRY:
@@ -103,7 +118,8 @@ def model_entry(config, device=None, generator: Optional[torch.Generator] = None
             raise KeyError(f"model type {mtype!r} is not ported to the PyTorch package "
                            f"yet; ported: {sorted(_REGISTRY)}")
         raise KeyError(f"unknown model type {mtype!r}; ported: {sorted(_REGISTRY)}")
+    device = resolve_device(device)
     model = _REGISTRY[mtype](device=device, **kwargs)
     if generator is None:
-        generator = torch.Generator(device=device or "cpu").manual_seed(0)
+        generator = torch.Generator(device=device).manual_seed(0)
     return init_module_tree(model, generator)

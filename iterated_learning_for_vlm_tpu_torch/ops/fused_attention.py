@@ -17,8 +17,10 @@ takes, so no head-split transposes or bias pass touch device memory.
   ``dq = ds k scale`` and ``dk = ds^T q scale``; fp32 sums, bf16 outputs.
 - :func:`tiny_attention_fwd` and :func:`tiny_attention_bwd` are the kernel
   wrappers. A CPU tensor takes the plain version; a CUDA tensor launches
-  ``csrc/tiny_attention_fwd.cu`` / ``csrc/tiny_attention_bwd.cu`` or
-  raises. Each counts its kernel launches in ``.launches``.
+  ``csrc/tiny_attention_fwd.cu`` / ``csrc/tiny_attention_bwd.cu`` (one
+  block per (sample, head), every product on the tensor cores) or raises.
+  The kernels read their inputs by 16-byte copies, so each tensor must start
+  16-byte aligned. Each wrapper counts its kernel launches in ``.launches``.
 - :class:`TinyAttention` is the ``autograd.Function`` over them (the JAX
   custom VJP ``_attend``): ``dqkv`` from K2-bwd and ``dbias3``, its fp32 sum
   over (B, S) cast to the bias dtype.
@@ -98,9 +100,14 @@ _BWD_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_voi
                  ctypes.c_void_p)
 
 
+def _aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
 def _check_cuda_args(qkv, heads, qkv_bias, name="tiny_attention_fwd"):
-    if qkv.dim() != 3 or qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
-        raise ValueError(f"{name}: qkv must be a contiguous [B, S, 3D] "
+    if (qkv.dim() != 3 or qkv.dtype != torch.bfloat16 or not qkv.is_contiguous()
+            or not _aligned(qkv)):
+        raise ValueError(f"{name}: qkv must be a contiguous, 16-byte aligned [B, S, 3D] "
                          f"bfloat16 tensor, got {tuple(qkv.shape)} {qkv.dtype}")
     b, s, three_d = qkv.shape
     if three_d % (3 * heads) or three_d // (3 * heads) != HEAD_DIM:
@@ -111,8 +118,9 @@ def _check_cuda_args(qkv, heads, qkv_bias, name="tiny_attention_fwd"):
                          f"1 <= B <= 65535, got B={b} S={s}")
     if qkv_bias is not None and (
             qkv_bias.shape != (three_d,) or qkv_bias.dtype != qkv.dtype
-            or qkv_bias.device != qkv.device or not qkv_bias.is_contiguous()):
-        raise ValueError(f"{name}: qkv_bias must be a contiguous "
+            or qkv_bias.device != qkv.device or not qkv_bias.is_contiguous()
+            or not _aligned(qkv_bias)):
+        raise ValueError(f"{name}: qkv_bias must be a contiguous, 16-byte aligned "
                          f"[{three_d}] {qkv.dtype} tensor on {qkv.device}")
 
 
@@ -156,8 +164,8 @@ def tiny_attention_bwd(qkv: torch.Tensor, heads: int, causal: bool,
     _check_cuda_args(qkv, heads, qkv_bias, "tiny_attention_bwd")
     b, s, three_d = qkv.shape
     if (dout.shape != (b, s, three_d // 3) or dout.dtype != qkv.dtype
-            or dout.device != qkv.device or not dout.is_contiguous()):
-        raise ValueError(f"tiny_attention_bwd: dout must be a contiguous "
+            or dout.device != qkv.device or not dout.is_contiguous() or not _aligned(dout)):
+        raise ValueError(f"tiny_attention_bwd: dout must be a contiguous, 16-byte aligned "
                          f"[{b}, {s}, {three_d // 3}] {qkv.dtype} tensor on {qkv.device}, "
                          f"got {tuple(dout.shape)} {dout.dtype} on {dout.device}")
     dqkv = torch.empty_like(qkv)
@@ -192,8 +200,10 @@ class TinyAttention(torch.autograd.Function):
                                   g.to(qkv.dtype).contiguous())
         if qkv_bias is None:
             return dqkv, None, None, None
-        # the absorbed bias sees every (sample, position) once
-        return dqkv, None, None, dqkv.float().sum(dim=(0, 1)).to(qkv_bias.dtype)
+        # the absorbed bias sees every (sample, position) once; an fp32 sum
+        # that reads dqkv as it is (no fp32 copy of it)
+        dbias = dqkv.sum(dim=(0, 1), dtype=torch.float32)
+        return dqkv, None, None, dbias.to(qkv_bias.dtype)
 
 
 def fused_tiny_attention(

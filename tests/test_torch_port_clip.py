@@ -82,7 +82,7 @@ def jax_params():
 
 
 def _port(jax_params, cfg):
-    return load_jax_params(model_entry(cfg), jax_params)
+    return load_jax_params(model_entry(cfg, device="cpu"), jax_params)
 
 
 def _np(x):
@@ -98,12 +98,13 @@ def test_clip_builds_with_reference_names(jax_params):
     """``clip_vitb32`` and ``clip_vitb16`` build; the state_dict names are the
     bridged JAX tree's, and the bridge round-trips through the JAX package's
     torch-checkpoint converter bit for bit."""
-    port = model_entry(clip_cfg("flash"))
+    port = model_entry(clip_cfg("flash"), device="cpu")
     assert isinstance(port, CLIP)
     assert set(port.state_dict()) == set(state_dict_from_jax_params(jax_params))
     assert not port.visual.conv1.weight.requires_grad
     b16 = model_entry({"type": "clip_vitb16", "kwargs": {"image_encode": {"layers": 1},
-                                                        "text_encode": {"layers": 1}}})
+                                                        "text_encode": {"layers": 1}}},
+                      device="cpu")
     assert b16.visual.positional_embedding.shape == (197, 768)
     back = convert_reference_state_dict(state_dict_from_jax_params(jax_params))
     flat_a = jax.tree_util.tree_flatten_with_path(jax_params)[0]

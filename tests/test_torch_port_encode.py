@@ -58,7 +58,7 @@ def encoders():
     kw = dict(batch_size=4, text_buckets=(8,), sd_temperature=0.7)
     jit = JitEncoder(model, params, is_fdt=True, tokenizer=WordTokenizer(),
                      transform="ONECROP", num_workers=1, **kw)
-    port = TorchEncoder(load_jax_params(model_entry(small_cfg(fused=True)), params),
+    port = TorchEncoder(load_jax_params(model_entry(small_cfg(fused=True), device="cpu"), params),
                         tokenizer=WordTokenizer(), **kw)
     return jit, port
 

@@ -55,11 +55,23 @@ def _gen(seed):
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
+# the padding edges of the kernels' 16-row tiles (S16 = 16, 32, 48, 64, 80,
+# 96, 128 warps' worth), with and without the causal mask and the bias, and
+# the full vision grid (B = 256, H = 12)
+K2_EDGES = [
+    (2, 15, 2, True, True), (2, 15, 2, False, False), (2, 16, 4, False, True),
+    (2, 16, 4, True, False), (2, 33, 2, True, True), (2, 33, 2, False, False),
+    (2, 64, 4, False, True), (2, 64, 4, True, True), (2, 65, 2, True, False),
+    (2, 65, 2, False, True), (2, 80, 8, True, True), (2, 80, 8, False, False),
+    (2, 127, 4, False, True), (2, 127, 4, True, True), (256, 50, 12, False, True),
+]
+
+
 @pytest.mark.parametrize("b,s,h,causal,with_bias", [
     (3, 1, 2, False, False), (3, 17, 2, False, True), (2, 50, 12, False, True),
     (2, 77, 8, True, True), (2, 32, 8, True, False), (2, 128, 4, True, True),
     (2, 100, 4, False, False),
-])
+] + K2_EDGES)
 def test_tiny_attention_kernel_matches_plain(dev, b, s, h, causal, with_bias):
     d = 64 * h
     g = _gen(s)
@@ -81,7 +93,7 @@ def test_tiny_attention_kernel_matches_plain(dev, b, s, h, causal, with_bias):
     (3, 1, 2, False, False), (3, 1, 2, True, True), (3, 17, 2, False, True),
     (2, 50, 12, False, True), (2, 77, 8, True, True), (2, 32, 8, True, False),
     (2, 128, 4, True, True), (2, 128, 4, False, False), (2, 100, 4, False, True),
-])
+] + K2_EDGES)
 def test_tiny_attention_bwd_kernel_matches_plain(dev, b, s, h, causal, with_bias):
     d = 64 * h
     g = _gen(s + 1000)
@@ -97,6 +109,18 @@ def test_tiny_attention_bwd_kernel_matches_plain(dev, b, s, h, causal, with_bias
     assert got.dtype == torch.bfloat16 and got.shape == qkv.shape
     err = (got.float() - ref.float()).abs()
     assert torch.all(err <= ATTN_BWD_ATOL + ATTN_BWD_RTOL * ref.float().abs()), err.max().item()
+
+
+@pytest.mark.parametrize("s,h,causal", [(50, 12, False), (77, 8, True), (32, 8, True)])
+def test_tiny_attention_bwd_repeats_bit_for_bit(dev, s, h, causal):
+    """Every dqkv element has one owner summing in a fixed order (no float
+    atomics), so two calls agree bit for bit."""
+    g = _gen(s + 3000)
+    qkv = torch.randn(64, s, 3 * 64 * h, generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn(64, s, 64 * h, generator=g, device=dev).to(torch.bfloat16)
+    bias3 = (0.3 * torch.randn(3 * 64 * h, generator=g, device=dev)).to(torch.bfloat16)
+    first = fa.tiny_attention_bwd(qkv, h, causal, bias3, dout)
+    assert torch.equal(first, fa.tiny_attention_bwd(qkv, h, causal, bias3, dout))
 
 
 def test_tiny_attention_function_bias_grad(dev):

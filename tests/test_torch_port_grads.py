@@ -215,7 +215,7 @@ def jax_loss_grads(params, fused, batch, temperature=0.5):
 
 
 def port_loss_grads(params, fused, batch, temperature=0.5):
-    port = load_jax_params(model_entry(small_cfg(fused, temperature)), params)
+    port = load_jax_params(model_entry(small_cfg(fused, temperature), device="cpu"), params)
     images, tokens, pad = batch
     out = port(torch.from_numpy(images), torch.from_numpy(tokens).long(),
                torch.from_numpy(pad))

@@ -10,6 +10,7 @@ Tolerance: atol 1e-5 unless stated. Both sides compute in fp32; they differ
 only in summation order (XLA:CPU vs ATen), worth a few fp32 ulps on the O(1)
 values compared here.
 """
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -223,12 +224,15 @@ def test_attention_reference_matches_xla_reference():
     (dict(hd=32), "head_dim"),
     (dict(s=129), "S <="),
     (dict(bias_len=10), "qkv_bias"),
+    (dict(offset=1), "16-byte aligned"),
 ])
 def test_attention_kernel_argument_checks(kwargs, match):
     """The checks the wrapper runs before a CUDA launch (tensors here stay
     on the CPU; the checks read only shape, dtype and layout)."""
     h, hd, s = 2, kwargs.get("hd", 64), kwargs.get("s", 16)
     qkv = torch.zeros(2, s, 3 * h * hd, dtype=kwargs.get("dtype", torch.bfloat16))
+    if "offset" in kwargs:  # a contiguous view that starts 2 bytes past an aligned address
+        qkv = torch.zeros(qkv.numel() + 1, dtype=qkv.dtype)[1:].view(qkv.shape)
     bias = torch.zeros(kwargs["bias_len"], dtype=torch.bfloat16) if "bias_len" in kwargs else None
     with pytest.raises(ValueError, match=match):
         tfa._check_cuda_args(qkv, h, bias)
@@ -333,23 +337,65 @@ def test_codebook_kernel_argument_checks(kwargs, match):
         tcb._check_cuda_args(q, sd, keep)
 
 
+_JAX_ROOTS = ("jax", "flax", "iterated_learning_for_vlm_tpu")
+
+
+def _imported_roots(path: Path) -> set:
+    """Top-level names of every module a source imports, at module level or
+    inside a function, by ``import``, ``from ... import`` (absolute), or
+    ``importlib.import_module`` / ``__import__`` with a literal name."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant) and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")):
+            roots.add(node.args[0].value.split(".")[0])
+    return roots
+
+
 def test_port_imports_no_jax():
-    """The port runs where jax is not installed: a fresh interpreter that
-    imports its models, ops, encoder and training modules must not load jax,
-    flax or the JAX package."""
+    """The port runs where jax is not installed. No source of the port or
+    ``chip_smoke.py`` imports jax, flax or the JAX package anywhere; and a
+    fresh interpreter that imports its models, ops, encoder and training
+    modules, and encodes captions through ``TorchEncoder.encode_texts`` with
+    no tokenizer given (the port's own, found on first use), has loaded none
+    of them, nor ``regex``."""
+    sources = sorted((REPO / "iterated_learning_for_vlm_tpu_torch").rglob("*.py"))
+    sources.append(REPO / "chip_smoke.py")
+    assert len(sources) > 20
+    bad = {str(p.relative_to(REPO)): sorted(_imported_roots(p) & set(_JAX_ROOTS))
+           for p in sources}
+    assert not {k: v for k, v in bad.items() if v}, bad
     code = (
         "import sys\n"
-        "import iterated_learning_for_vlm_tpu_torch.models\n"
+        "import numpy as np\n"
         "import iterated_learning_for_vlm_tpu_torch.ops.codebook_attention\n"
         "import iterated_learning_for_vlm_tpu_torch.ops.flash_attention\n"
         "import iterated_learning_for_vlm_tpu_torch.ops.fused_attention\n"
-        "import iterated_learning_for_vlm_tpu_torch.eval.encode\n"
         "import iterated_learning_for_vlm_tpu_torch.tools.torch_checkpoint\n"
         "import iterated_learning_for_vlm_tpu_torch.train.il\n"
         "import iterated_learning_for_vlm_tpu_torch.train.schedule\n"
         "import iterated_learning_for_vlm_tpu_torch.train.step\n"
+        "from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder\n"
+        "from iterated_learning_for_vlm_tpu_torch.models import model_entry\n"
+        "cfg = {'type': 'clip_fdt_vitb32', 'kwargs': {\n"
+        "    'image_encode': {'input_resolution': 32, 'patch_size': 16, 'width': 64,\n"
+        "                     'layers': 1, 'heads': 1, 'embed_dim': 32},\n"
+        "    'text_encode': {'context_length': 16, 'width': 64, 'heads': 1, 'layers': 1,\n"
+        "                    'embed_dim': 32},\n"
+        "    'fdt': {'sd_num': 32, 'sd_dim': 32, 'raw_img_ft_dim': 64, 'raw_txt_ft_dim': 64,\n"
+        "            'sparsemax_method': 'bisect'}}}\n"
+        "enc = TorchEncoder(model_entry(cfg, device='cpu'), batch_size=2)\n"
+        "emb = enc.encode_texts(['a photo of a cat', 'x\\u00b2 + \\u00bd, caf\\u00e9'])\n"
+        "assert emb.shape == (2, 32) and np.isfinite(emb).all(), emb.shape\n"
+        "assert enc.tokenizer.vocab_size == 49409\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'iterated_learning_for_vlm_tpu'))\n"
+        f"{_JAX_ROOTS + ('regex',)!r})\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -81,7 +81,8 @@ def jax_params():
 
 
 def _port(jax_params, fused, temperature=0.5):
-    return load_jax_params(model_entry(small_cfg(fused, temperature)), jax_params).eval()
+    return load_jax_params(model_entry(small_cfg(fused, temperature), device="cpu"),
+                           jax_params).eval()
 
 
 def _np(x):
@@ -100,7 +101,7 @@ def test_weight_bridge_round_trip(jax_params):
 
 
 def test_port_state_dict_has_reference_names(jax_params):
-    port = model_entry(small_cfg(True))
+    port = model_entry(small_cfg(True), device="cpu")
     assert set(port.state_dict()) == set(state_dict_from_jax_params(jax_params))
     assert not port.visual.conv1.weight.requires_grad
     assert "visual.transformer.resblocks.1.attn.in_proj_weight" in port.state_dict()
@@ -114,11 +115,31 @@ def test_model_entry_names_unported_types():
         model_entry({"type": "no_such_model", "kwargs": {}})
 
 
+def test_model_entry_defaults_to_cuda(monkeypatch):
+    """No device named means the CUDA card: with CUDA hidden, ``model_entry``
+    and the public constructors raise rather than build on the CPU, and
+    ``device="cpu"`` still builds there."""
+    from iterated_learning_for_vlm_tpu_torch import models
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = small_cfg(True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model_entry(cfg)
+    for ctor in (models.clip_vitb32, models.clip_vitb16, models.clip_fdt_vitb32):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ctor(**cfg["kwargs"])
+    port = model_entry(cfg, device="cpu")
+    assert {p.device.type for p in port.parameters()} == {"cpu"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert models.resolve_device() == torch.device("cuda")
+    assert models.resolve_device("cpu") == torch.device("cpu")
+
+
 def test_model_entry_seeded_init_is_reproducible():
     cfg = small_cfg(True)
-    a = model_entry(cfg, generator=torch.Generator().manual_seed(3)).state_dict()
-    b = model_entry(cfg, generator=torch.Generator().manual_seed(3)).state_dict()
-    c = model_entry(cfg, generator=torch.Generator().manual_seed(4)).state_dict()
+    a = model_entry(cfg, device="cpu", generator=torch.Generator().manual_seed(3)).state_dict()
+    b = model_entry(cfg, device="cpu", generator=torch.Generator().manual_seed(3)).state_dict()
+    c = model_entry(cfg, device="cpu", generator=torch.Generator().manual_seed(4)).state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["space_dict"], c["space_dict"])
 

@@ -52,7 +52,7 @@ def bridged(tree):
 
 
 def port_model(jax_params, fused=False):
-    return load_jax_params(model_entry(small_cfg(fused)), jax_params)
+    return load_jax_params(model_entry(small_cfg(fused), device="cpu"), jax_params)
 
 
 def _np(x):
@@ -477,7 +477,7 @@ def test_reset_redraws_the_reference_leaves(jax_params, roots, what):
 def test_full_reset_takes_fresh_params(jax_params):
     """``semantics="full"``: every text parameter from ``init_fn``'s model."""
     def init_fn(generator):
-        return model_entry(small_cfg(False), generator=generator).state_dict()
+        return model_entry(small_cfg(False), device="cpu", generator=generator).state_dict()
 
     cfg = il.ResetConfig(semantics="full")
     model, params, state, _ = _port_il(jax_params, cfg)
