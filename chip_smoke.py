@@ -23,10 +23,12 @@ and depth, bf16, both kernels on, random weights from seed 0),
 3b. backward kernels: K2-bwd (dqkv and dbias3 through autograd of
    ``fused_tiny_attention``) and K1-bwd dq / dsd (fed the forward kernel's
    amax on both sides) the same way;
-3c. flash attention: K3-fwd, and K3-bwd through autograd of
-   ``flash_attention``, against their plain versions, q/k/v taken as the
-   column blocks of one packed [B, S, 3D] tensor, at the vision (S=50), text
-   (S=77 and 32, causal) and ViT-B/16 (S=197) shapes;
+3c. flash attention: K3-fwd (with its lse, which the serving call leaves
+   out), K3-bwd through autograd of ``flash_attention`` (from the saved lse)
+   and the two together (beside SDPA's forward + backward), against their
+   plain versions, q/k/v taken as the column blocks of one packed [B, S, 3D]
+   tensor, at the vision (S=50), text (S=77 and 32, the causal flag) and
+   ViT-B/16 (S=197) shapes, and S=77 with the causal mask as a bias;
 4. serve: reset the launch counters, encode 256 images and 256 texts at the
    ctx-32 and ctx-77 buckets, read the counters; embeddings must be finite,
    unit-norm, match the plain path within a cosine bound, and every forward
@@ -60,7 +62,8 @@ K2 route (as shipped, ``fused_attn: true``) and the plain route (neither):
    256, ctx 32 (24 K3-fwd, 24 K3-bwd, nothing else) against the plain route,
    pairs/s and embeds/s of all three routes, and a profile of a flash step;
 10. CLIP ViT-B/16 (S=197, which only K3 takes): one train step on the flash
-   route (24 / 24 launches) against the plain route, and one paired time.
+   route (24 / 24 launches) against the plain route, a profile of one flash
+   step (device time, K3's share, top ops) and one paired time.
 
 Any failure exits non-zero. The line before the last is the kernels JSON
 (each kernel's train-step launches, error, times, bound and library time at
@@ -71,6 +74,7 @@ the last ``{"ok": true, "device": {...}}``. All numbers also go to
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -131,6 +135,9 @@ POOL_BWD_ATOL, POOL_BWD_RTOL = 1e-4, 8e-3
 # in another summation order and round once to bf16: one bf16 ulp of |ref|
 # (<= 2^-7 relative), plus 1e-3 for fp32 noise on values near 0.
 FLASH_ATOL, FLASH_RTOL = 1e-3, 2.0 ** -7
+# K3-fwd's lse: the log-sum-exp of the same fp32 logits (bf16 products summed
+# in another order), in base 2 with one log per row: ~1e-6 at |lse| <= 10.
+LSE_ATOL = 1e-4
 # Train step, kernel path vs plain path: bf16 towers that round the attention
 # and the codebook product at other places; the loss is ~ln(256) = 5.5. On an
 # H100 either bf16 path's vision-tower gradients lie at cosine 0.986-0.993
@@ -443,10 +450,13 @@ def pool_bwd_cases(dev, name, b, t, with_keep):
 
 
 # -- phase 3c: flash attention against its plain versions --------------------
-def flash_case(dev, name, b, s, h, causal):
-    """K3-fwd, and K3-bwd through autograd of ``flash_attention``, against
-    their plain versions; q, k, v are the column blocks of one packed
-    [B, S, 3D] tensor, as the towers pass them. Returns the two rows."""
+def flash_case(dev, name, b, s, h, causal, route="flag"):
+    """K3-fwd (with lse, as the train step calls it), K3-bwd through autograd
+    of ``flash_attention`` (from the forward's saved lse), and the two
+    together, against their plain versions; q, k, v are the column blocks of
+    one packed [B, S, 3D] tensor, as the towers pass them. A causal case
+    takes the flag (``route`` "flag", the towers' route) or the causal bias
+    ("bias"). Returns the forward, backward and forward + backward rows."""
     from iterated_learning_for_vlm_tpu_torch.ops import flash_attention as fl
     from iterated_learning_for_vlm_tpu_torch.ops.fused_attention import causal_bias
 
@@ -454,50 +464,72 @@ def flash_case(dev, name, b, s, h, causal):
     d = 64 * h
     qkv = torch.randn(b, s, 3 * d, generator=g, device=dev).to(torch.bfloat16)
     dout = torch.randn(b, s, h, 64, generator=g, device=dev).to(torch.bfloat16)
-    bias = causal_bias(s, dev) if causal else None
+    bias = causal_bias(s, dev) if causal and route == "bias" else None
+    flag = causal and route == "flag"
 
     def heads(t):
         return [x.reshape(b, s, h, 64) for x in t.split(d, dim=-1)]
 
+    def within(got, ref):
+        return bool(torch.all((got.float() - ref.float()).abs()
+                              <= FLASH_ATOL + FLASH_RTOL * ref.float().abs()))
+
     q, k, v = heads(qkv)
     rows = []
-    got = fl.flash_attention_fwd(q, k, v, bias)
-    ref = fl.flash_attention_reference(q, k, v, bias)
+    got, lse = fl.flash_attention_fwd(q, k, v, bias, flag, with_lse=True)
+    ref, ref_lse = fl.flash_attention_lse_reference(q, k, v, bias, flag)
+    serve_equal = torch.equal(got, fl.flash_attention_fwd(q, k, v, bias, flag))
     torch.cuda.synchronize()
-    err = (got.float() - ref.float()).abs()
-    ok = bool(torch.all(err <= FLASH_ATOL + FLASH_RTOL * ref.float().abs()))
+    lse_err = (lse - ref_lse).abs().max().item()
+    ok = within(got, ref) and lse_err <= LSE_ATOL and serve_equal
     lib_fwd, lib_bwd = sdpa_fwd(q, k, v, causal), sdpa_fwd_bwd(q, k, v, causal, dout)
-    rows.append({"case": name, "max_abs_err": err.max().item(), "atol": FLASH_ATOL,
-                 "rtol": FLASH_RTOL, "within_tol": ok})
-    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound_ms(
-        nbytes(q, k, v, bias, got), attention_ops(b, s, h, causal, 2))
-    del got, ref
-    timed_row(rows[-1], lambda: fl.flash_attention_reference(q, k, v, bias),
-              lambda: fl.flash_attention_fwd(q, k, v, bias), lib_fwd)
-    log(f"kernel flash_attention_fwd {name}: max_abs_err={rows[-1]['max_abs_err']:.3e} "
-        f"(tol {FLASH_ATOL} + 2^-7*|ref|) ok={ok} {timing_text(rows[-1])}")
-    check(ok, f"flash_attention_fwd {name} disagrees with flash_attention_reference")
-
-    qkv_k = qkv.clone().requires_grad_()
-    fl.flash_attention(*heads(qkv_k), bias).backward(dout)
-    refs = fl.flash_attention_bwd_reference(q, k, v, bias, dout)
-    torch.cuda.synchronize()
-    errs = [(got.reshape(ref.shape).float() - ref.float()).abs().max().item()
-            for got, ref in zip(heads(qkv_k.grad), refs)]
-    ok = all(bool(torch.all((got.reshape(ref.shape).float() - ref.float()).abs()
-                            <= FLASH_ATOL + FLASH_RTOL * ref.float().abs()))
-             for got, ref in zip(heads(qkv_k.grad), refs))
-    rows.append({"case": name, "max_abs_err": max(errs), "max_abs_err_dq_dk_dv": errs,
+    rows.append({"case": name, "route": route, "max_abs_err": (got.float() - ref.float()).abs()
+                 .max().item(), "lse_max_abs_err": lse_err, "serving_output_equal": serve_equal,
                  "atol": FLASH_ATOL, "rtol": FLASH_RTOL, "within_tol": ok})
     rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound_ms(
-        nbytes(q, k, v, bias, dout, qkv_k.grad), attention_ops(b, s, h, causal, 5))
-    del qkv_k, refs
-    timed_row(rows[-1], lambda: fl.flash_attention_bwd_reference(q, k, v, bias, dout),
-              lambda: fl.flash_attention_bwd(q, k, v, bias, dout), lib_bwd)
-    log(f"kernel flash_attention_bwd {name} (autograd of flash_attention): max_abs_err "
-        f"dq/dk/dv={errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {FLASH_ATOL} + 2^-7*|ref|) "
-        f"ok={ok} {timing_text(rows[-1])} (library: forward + backward)")
+        nbytes(q, k, v, bias, got, lse), attention_ops(b, s, h, causal, 2))
+    del got, ref
+    timed_row(rows[-1], lambda: fl.flash_attention_lse_reference(q, k, v, bias, flag),
+              lambda: fl.flash_attention_fwd(q, k, v, bias, flag, with_lse=True), lib_fwd)
+    log(f"kernel flash_attention_fwd {name}: max_abs_err={rows[-1]['max_abs_err']:.3e} "
+        f"(tol {FLASH_ATOL} + 2^-7*|ref|), lse max_abs_err={lse_err:.3e} (tol {LSE_ATOL}), "
+        f"serving call (no lse) equal: {serve_equal}; ok={ok} {timing_text(rows[-1])}")
+    check(ok, f"flash_attention_fwd {name} disagrees with flash_attention_lse_reference")
+
+    qkv_k = qkv.clone().requires_grad_()
+    fl.flash_attention(*heads(qkv_k), bias, causal=flag).backward(dout)
+    refs = fl.flash_attention_bwd_reference(q, k, v, bias, ref_lse, dout, flag)
+    torch.cuda.synchronize()
+    grads = [got.reshape(ref.shape) for got, ref in zip(heads(qkv_k.grad), refs)]
+    errs = [(got.float() - ref.float()).abs().max().item() for got, ref in zip(grads, refs)]
+    ok = all(within(got, ref) for got, ref in zip(grads, refs))
+    rows.append({"case": name, "route": route, "max_abs_err": max(errs),
+                 "max_abs_err_dq_dk_dv": errs, "atol": FLASH_ATOL, "rtol": FLASH_RTOL,
+                 "within_tol": ok})
+    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound_ms(
+        nbytes(q, k, v, bias, lse, dout, qkv_k.grad), attention_ops(b, s, h, causal, 5))
+    del qkv_k, refs, grads
+    timed_row(rows[-1], lambda: fl.flash_attention_bwd_reference(q, k, v, bias, lse, dout, flag),
+              lambda: fl.flash_attention_bwd(q, k, v, bias, lse, dout, flag), lib_bwd)
+    log(f"kernel flash_attention_bwd {name} (autograd of flash_attention, from the saved lse): "
+        f"max_abs_err dq/dk/dv={errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {FLASH_ATOL} + "
+        f"2^-7*|ref|) ok={ok} {timing_text(rows[-1])} (library: forward + backward)")
     check(ok, f"flash_attention_bwd {name} disagrees with flash_attention_bwd_reference")
+
+    def kernel_pair():
+        out, lse_ = fl.flash_attention_fwd(q, k, v, bias, flag, with_lse=True)
+        return out, fl.flash_attention_bwd(q, k, v, bias, lse_, dout, flag)
+
+    def plain_pair():
+        out, lse_ = fl.flash_attention_lse_reference(q, k, v, bias, flag)
+        return out, fl.flash_attention_bwd_reference(q, k, v, bias, lse_, dout, flag)
+
+    rows.append({"case": name, "route": route})
+    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound_ms(
+        nbytes(q, k, v, bias, dout) + 4 * nbytes(q), attention_ops(b, s, h, causal, 7))
+    timed_row(rows[-1], plain_pair, kernel_pair, lib_bwd)
+    log(f"kernel flash_attention_fwd+bwd {name} (the two as a train step runs them, beside "
+        f"the library's forward + backward): {timing_text(rows[-1])}")
     return rows
 
 
@@ -756,6 +788,22 @@ def clip_phases(dev, rng, counted, report):
     b16_launches, report["clip_b16_train_step"], (state_f, step_f), (state_p, step_p) = (
         train_phase(fast, plain, batch32, counted, CLIP_TRAIN_LAUNCHES, is_fdt=False,
                     label="CLIP B/16 train step"))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_f(state_f, batch32, 0.0)
+        sync()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    k3 = {re.search(r"flash_attention\w*", e.key).group(0): e for e in kernels
+          if "flash_attention" in e.key}
+    k3_ms = sum(e.self_device_time_total for e in k3.values()) / 1e3
+    report["clip_b16_profile"] = {"device_ms": device_ms, "k3_ms": k3_ms, "k3": {
+        name: {"calls": e.count, "ms": e.self_device_time_total / 1e3} for name, e in k3.items()}}
+    log(f"profile CLIP B/16 flash-route train step ctx32: {device_ms:.3f} ms of device time, "
+        f"K3 kernels {k3_ms:.3f} ms ({k3_ms / device_ms:.1%}: "
+        + ", ".join(f"{name} {e.count}x {e.self_device_time_total / 1e3:.3f} ms"
+                    for name, e in k3.items()) + ")\n"
+        + events.table(sort_by="cuda_time_total", row_limit=25, max_name_column_width=60))
     plain_ms, ms = paired_ms(lambda: step_p(state_p, batch32, 0.0),
                              lambda: step_f(state_f, batch32, 0.0), iters=3)
     report["clip_b16_train_timing"] = {"ms": ms, "plain_ms": plain_ms,
@@ -826,9 +874,11 @@ def main() -> int:
     k3 = [flash_case(dev, f"vision B={BATCH} S=50 H=12", BATCH, 50, 12, False),
           flash_case(dev, f"text B={BATCH} S=77 H=8 causal", BATCH, 77, 8, True),
           flash_case(dev, f"text B={BATCH} S=32 H=8 causal", BATCH, 32, 8, True),
-          flash_case(dev, f"ViT-B/16 vision B={BATCH} S=197 H=12", BATCH, 197, 12, False)]
+          flash_case(dev, f"ViT-B/16 vision B={BATCH} S=197 H=12", BATCH, 197, 12, False),
+          flash_case(dev, f"text B={BATCH} S=77 H=8 causal bias", BATCH, 77, 8, True, "bias")]
     k3f, k3b = [r[0] for r in k3], [r[1] for r in k3]
-    report["kernel_checks"].update({"flash_attention_fwd": k3f, "flash_attention_bwd": k3b})
+    report["kernel_checks"].update({"flash_attention_fwd": k3f, "flash_attention_bwd": k3b,
+                                    "flash_attention_fwd_bwd": [r[2] for r in k3]})
 
     # 4. the serving path, kernel path and plain path from the same weights
     model = model_entry(model_config(True), device=dev,

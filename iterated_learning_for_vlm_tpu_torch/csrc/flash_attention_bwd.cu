@@ -4,254 +4,327 @@
 // `_attn_bwd_kernel` (launched by `_bwd_rule.inner`). Same function, per
 // (sample, head), all in fp32 from bf16 q, k, v, do, cast to bf16 at the end:
 //
-//   p  = softmax(q k^T * scale + bias)      recomputed
-//   dv = p^T do,   dp = do v^T,   ds = p (dp - sum_j dp p)
+//   p  = exp(q k^T * scale + bias - lse)    lse: the forward's row log-sum-exp
+//   dv = p^T do,   dp = do v^T,   ds = p (dp - D),   D = sum_j dp p
 //   dq = ds k * scale,   dk = ds^T q * scale
 //
-// The bias (shared [S, S] fp32, or none) gets no gradient.
+// The bias (shared [S, S] fp32, or none) gets no gradient; the causal flag
+// masks keys above the diagonal by index, as in K3-fwd.
 //
-// What bounds it on an H100: five products of S^2 64 multiply-adds per
-// (sample, head), arithmetic as in K3-fwd. The TPU kernel holds a whole
-// (sample, head) in VMEM; here q, k, v and do as bf16 and the fp32 dk and dv
-// sums would take 202 KB at S = 197 before p and ds, and blocks run in no
-// order, so a sum split across blocks would need float atomics and would not
-// repeat bit for bit. So the wrapper's one call makes two launches, and every
-// output element has one owner that sums in a fixed order:
+// What bounds it on an H100: bytes, as K3-fwd (at B = 256, H = 12, S = 197:
+// 0.1619 ms at 3.35 TB/s). A (sample, head) does not fit one block's shared
+// memory at S = 197 with its fp32 sums, and blocks run in no order, so a sum
+// split across blocks would need float atomics and would not repeat bit for
+// bit. So the wrapper's one call makes two launches, and every output
+// element has one owner that sums in a fixed order:
 //
-// 1. dq kernel: a block of 4 warps owns 64 query rows (16 a warp). Pass 1
-//    walks the keys in chunks of 64 (k and v staged row-major) and recomputes
-//    the row statistics: the max m and sum l of the softmax (online, as
-//    K3-fwd) and D = sum_j dp p. Pass 2 walks them again (k also transposed),
-//    forms p = exp(logit - m) / l and ds = p (dp - D) in registers and sums
-//    dq += ds k. It writes dq and, per row, m, l and D to a scratch buffer.
-//    The statistics are recomputed here, not saved by the forward, so the
-//    forward and serving stay one kernel with one output.
-// 2. dk/dv kernel: a block owns 64 key rows and walks the queries in chunks
-//    of 64 (q and do staged row-major and transposed, with their m, l, D),
-//    recomputes p^T and ds^T from the same statistics and sums dv += p^T do,
-//    dk += ds^T q.
+// 1. dq kernel: a warp owns 16 query rows, a block block_warps(S) warps (as
+//    K3-fwd). q and do are staged once by cp.async; the keys and values are
+//    walked once, in chunks of 64 through a two-stage cp.async ring (one
+//    barrier a chunk, the next chunk in flight). From p = exp2(logit2 - lse2)
+//    (the forward's lse, so no online rescale) it sums, in one pass, D =
+//    sum_j p dp exactly and the two products sum_j (p dp)_j k_j and
+//    sum_j p_j k_j (B from the row-major key tile by ldmatrix.trans); then
+//    dq = scale (sum (p dp) k - D sum p k), which is ds k with
+//    ds = p (dp - D), and D goes to the stats buffer. (The difference loses
+//    ~2e-5 to fp32 at S = 77 to 1024, against 1e-3 of tolerance; a second
+//    pass over the keys for ds itself took 18% longer at S = 197. D = do . o
+//    from the saved bf16 output was measured first and dropped: o's
+//    rounding moves D by up to ~2e-2 at S = 77, which the causal first row
+//    carries straight into dq, past the 1e-3 tolerance.)
+// 2. dk/dv kernel: a warp owns 16 key rows (k and v staged once; their A
+//    fragments are loaded again for each query tile, which keeps 32
+//    registers free); the block walks the queries in chunks of 64 (q and do
+//    row-major, with their lse and D, through the same kind of ring):
+//    s^T = k q^T and dp^T = v do^T take B = q and B = do by ldmatrix, then
+//    dv += p^T do and dk += ds^T q take the C fragments as A fragments in
+//    registers and B = do and B = q by ldmatrix.trans.
 //
-// Every product runs on the tensor cores (mma.sync m16n8k16, fp32
-// accumulators): products of two bf16 operands take them as they are; p and
-// ds enter as three bf16 terms whose sum is their fp32 value, so those
-// products are fp32 products as in the TPU kernel. Shared memory: 28 KB and
-// 38 KB a block. No cp.async/TMA pipeline or wgmma yet.
+// p, p dp and ds enter their products as two bf16 terms (~2^-17 relative).
+// Per (sample, head) that is 6 product units of S^2 64 in each kernel.
+// Causal: the dq kernel stages no chunk past its block's last row and each
+// warp stops at its own diagonal tile; the dk/dv kernel starts at the chunk
+// of its first key and each warp skips the query tiles wholly before its
+// first key. Chunks are trimmed to roundup(S - row0, 16) rows.
 #include "flash_attention.cuh"
 
 namespace {
 
+using namespace ilvlm;
 using namespace ilvlm::flash;
 
-__global__ void __launch_bounds__(kWarps * 32)
+// q and do tiles [16 warps][kLd], two ring stages of key and value chunks,
+// and with a bias two stages of bias tiles [16 warps][64 + pad] fp32.
+size_t dq_smem_bytes(int warps, bool with_bias) {
+  const size_t rows = 16 * warps;
+  return (2 * rows + 4 * kChunk) * kLd * sizeof(__nv_bfloat16) +
+         (with_bias ? 2 * rows * (kChunk + kBiasPad) * sizeof(float) : 0);
+}
+
+// k and v tiles [16 warps][kLd], two ring stages of q and do chunks, two of
+// their lse and D [64] fp32, and with a bias two stages of bias tiles
+// [64][16 warps + pad] fp32.
+size_t dkdv_smem_bytes(int warps, bool with_bias) {
+  const size_t rows = 16 * warps;
+  return (2 * rows + 4 * kChunk) * kLd * sizeof(__nv_bfloat16) +
+         2 * 2 * kChunk * sizeof(float) +
+         (with_bias ? 2 * kChunk * (rows + kBiasPad) * sizeof(float) : 0);
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32)
 flash_attention_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
                               const float* __restrict__ bias,
                               const __nv_bfloat16* __restrict__ dout,
-                              __nv_bfloat16* __restrict__ dq, float* __restrict__ stats,
-                              int seq, int heads, long long batch_stride, long long token_stride,
+                              const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
+                              float* __restrict__ dstat, int seq, int heads,
+                              long long batch_stride, long long token_stride,
                               long long dout_batch_stride, long long dout_token_stride,
-                              float scale) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kChunk * kLd];  // key chunk, row-major
-  __shared__ __align__(16) __nv_bfloat16 vs[kChunk * kLd];  // value chunk, row-major
-  __shared__ __align__(16) __nv_bfloat16 kt[kChunk * kLd];  // key chunk, transposed
+                              int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = blockDim.x >> 1;  // 16 query rows a warp
+  const int bias_ld = kChunk + kBiasPad;
+  __nv_bfloat16* const qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* const dos = qs + rows * kLd;
+  __nv_bfloat16* const ring = dos + rows * kLd;  // stage i: keys, then values
+  float* const bias_ring = reinterpret_cast<float*>(ring + 4 * kChunk * kLd);
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = blockIdx.x * kChunk + warp * 16;
-  const int rows[2] = {row0 + g, row0 + g + 8};
+  const int g = lane_id() >> 2;
+  const int t = lane_id() & 3;
+  const int r0 = blockIdx.x * rows;
+  const int wrow = 16 * warp;
+  const int row0 = r0 + wrow;
   const long long head = b * batch_stride + h * kHeadDim;
+  const long long stat0 = (static_cast<long long>(b) * heads + h) * seq;
+  const int kend = causal ? min(seq, r0 + rows) : seq;
+  const int nchunks = (kend + kChunk - 1) / kChunk;
+  const float scale2 = scale * kLog2e;
+  // p = 2^(s sc - lse2): s the raw product without a bias, else the base-2 logit
+  const float sc = bias == nullptr ? scale2 : 1.f;
 
-  uint32_t qa[4][4], da[4][4];
-  load_a_rows(q + head, token_stride, row0, seq, qa);
-  load_a_rows(dout + b * dout_batch_stride + h * kHeadDim, dout_token_stride, row0, seq, da);
-
-  // Pass 1: m, l and sum_j exp(logit - m) dp, online over the key chunks.
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
-  for (int k0 = 0; k0 < seq; k0 += kChunk) {
-    __syncthreads();
-    stage(k + head, token_stride, k0, seq, ks, nullptr);
-    stage(v + head, token_stride, k0, seq, vs, nullptr);
-    __syncthreads();
-    if (row0 >= seq) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {  // 32 keys at a time
-      float s[4][4], dp[4][4];
-      product_rows<4>(qa, ks, half * 32, s);
-      product_rows<4>(da, vs, half * 32, dp);
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[nt][e] = logit(s[nt][e], scale, bias, rows[e >> 1],
-                           k0 + half * 32 + nt * 8 + 2 * t + (e & 1), seq);
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-        }
-      }
-      float alpha[2], rs[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = quad_max(mx[i]);
-        alpha[i] = mx[i] == -INFINITY ? 1.f : expf(m[i] - mx[i]);
-        m[i] = mx[i];
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = s[nt][e];
-          const float p = x == -INFINITY ? 0.f : expf(x - m[e >> 1]);
-          rs[e >> 1] += p;
-          rd[e >> 1] += p * dp[nt][e];
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        l[i] = l[i] * alpha[i] + quad_sum(rs[i]);
-        dsum[i] = dsum[i] * alpha[i] + quad_sum(rd[i]);
-      }
+  auto issue = [&](int j) {
+    const int k0 = j * kChunk;
+    const int n = 16 * chunk_tiles(k0, kend);
+    __nv_bfloat16* const st = ring + (j & 1) * 2 * kChunk * kLd;
+    stage_async(k + head + k0 * token_stride, token_stride, n, seq - k0, st);
+    stage_async(v + head + k0 * token_stride, token_stride, n, seq - k0, st + kChunk * kLd);
+    if (bias != nullptr) {
+      stage_bias(bias, seq, r0, k0, rows, kChunk, bias_ring + (j & 1) * rows * bias_ld);
     }
-  }
-  // D = sum_j dp p (0 on a row past the end, whose logits are all -inf)
-  const float dd[2] = {l[0] > 0.f ? dsum[0] / l[0] : 0.f, l[1] > 0.f ? dsum[1] / l[1] : 0.f};
+  };
+  stage_async(q + head + r0 * token_stride, token_stride, rows, seq - r0, qs);
+  stage_async(dout + b * dout_batch_stride + h * kHeadDim + r0 * dout_token_stride,
+              dout_token_stride, rows, seq - r0, dos);
+  issue(0);
+  cp_async_commit();
 
-  // Pass 2: ds = p (dp - D), dq += ds k.
-  float acc[8][4];
+  const bool live = row0 < seq;
+  const int wend = causal ? min(seq, row0 + 16) : seq;
+  float lse2[2], dd[2] = {0.f, 0.f};  // dd: this thread's part of D, then D
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  for (int k0 = 0; k0 < seq; k0 += kChunk) {
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+    lse2[i] = r < seq ? lse[stat0 + r] * kLog2e : INFINITY;  // p = 0 on rows past the end
+  }
+  // dq = scale (sum_j (p dp)_j k_j - D sum_j p_j k_j): one pass over the keys
+  float pdk[8][4], pk[8][4];
+  zero(pdk);
+  zero(pk);
+  for (int j = 0; j < nchunks; ++j) {
+    cp_async_wait<0>();
     __syncthreads();
-    stage(k + head, token_stride, k0, seq, ks, kt);
-    stage(v + head, token_stride, k0, seq, vs, nullptr);
-    __syncthreads();
-    if (row0 >= seq) continue;
+    if (j + 1 < nchunks) {
+      issue(j + 1);
+      cp_async_commit();
+    }
+    if (!live) continue;
+    const int k0 = j * kChunk;
+    const int nkt = chunk_tiles(k0, wend);
+    const __nv_bfloat16* const ks = ring + (j & 1) * 2 * kChunk * kLd;
+    const __nv_bfloat16* const vs = ks + kChunk * kLd;
+    const float* const bs = bias_ring + (j & 1) * rows * bias_ld + wrow * bias_ld;
+    for (int kt = 0; kt < nkt; ++kt) {
+      float s[2][4], dp[2][4];
+      {
+        // q and do fragments come again from shared memory for each tile,
+        // which keeps 32 registers free for the two sums
+        uint32_t a[4][4];
+        load_rows(a, qs, wrow);
+        product16(a, ks, kt * 16, s);
+        load_rows(a, dos, wrow);
+        product16(a, vs, kt * 16, dp);
+      }
+      // a mask only where the tile crosses S or the diagonal (as K3-fwd)
+      const bool whole = k0 + 16 * kt + 16 <= seq && (!causal || k0 + 16 * kt + 16 <= row0 + 1);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float s[4][4], dp[4][4];
-      product_rows<4>(qa, ks, half * 32, s);
-      product_rows<4>(da, vs, half * 32, dp);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+      for (int n = 0; n < 2; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1;
-          const float x = logit(s[nt][e], scale, bias, rows[i],
-                                k0 + half * 32 + nt * 8 + 2 * t + (e & 1), seq);
-          const float p = x == -INFINITY ? 0.f : expf(x - m[i]) / l[i];
-          s[nt][e] = p * (dp[nt][e] - dd[i]);  // ds
+          const int c = kt * 16 + n * 8 + 2 * t + (e & 1);  // key in the chunk
+          float x = s[n][e];
+          if (bias != nullptr) x = fmaf(bs[(g + 8 * i) * bias_ld + c], kLog2e, x * scale2);
+          float p = exp2_approx(fmaf(x, sc, -lse2[i]));
+          if (!whole && (k0 + c >= seq || (causal && k0 + c > row0 + g + 8 * i))) p = 0.f;
+          s[n][e] = p;
+          dp[n][e] *= p;
+          dd[i] += dp[n][e];
         }
       }
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        accumulate_fp32_a(acc, s[2 * kk], s[2 * kk + 1], kt, half * 32 + kk * 16);
-      }
+      uint32_t hi[4], lo[4];
+      a_from_c(dp, hi, lo);
+      accumulate2(pdk, hi, lo, ks, kt * 16);
+      a_from_c(s, hi, lo);
+      accumulate2(pk, hi, lo, ks, kt * 16);
     }
   }
-  if (row0 >= seq) return;
-  const float mul[2] = {scale, scale};
-  store_rows(acc, mul, dq + (static_cast<long long>(b) * seq * heads + h) * kHeadDim,
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    dd[i] = quad_sum(dd[i]);
+    const int r = row0 + g + 8 * i;
+    if (t == 0 && r < seq) dstat[stat0 + r] = dd[i];
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pdk[nt][e] = fmaf(-dd[e >> 1], pk[nt][e], pdk[nt][e]);
+  store_rows(pdk, scale, dq + (static_cast<long long>(b) * seq * heads + h) * kHeadDim,
              static_cast<long long>(heads) * kHeadDim, row0, seq);
-  if (t == 0) {
-    const long long plane = static_cast<long long>(gridDim.z) * heads * seq;
-    const long long base = (static_cast<long long>(b) * heads + h) * seq;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      if (rows[i] < seq) {
-        stats[base + rows[i]] = m[i];
-        stats[plane + base + rows[i]] = l[i];
-        stats[2 * plane + base + rows[i]] = dd[i];
-      }
-    }
-  }
 }
 
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kMaxWarps * 32)
 flash_attention_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
                                 const __nv_bfloat16* __restrict__ k,
                                 const __nv_bfloat16* __restrict__ v,
                                 const float* __restrict__ bias,
                                 const __nv_bfloat16* __restrict__ dout,
-                                const float* __restrict__ stats,
+                                const float* __restrict__ lse, const float* __restrict__ dstat,
                                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                                 int seq, int heads, long long batch_stride,
                                 long long token_stride, long long dout_batch_stride,
-                                long long dout_token_stride, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 qs[kChunk * kLd];  // query chunk, row-major
-  __shared__ __align__(16) __nv_bfloat16 qt[kChunk * kLd];  // ... transposed
-  __shared__ __align__(16) __nv_bfloat16 gs[kChunk * kLd];  // output-gradient chunk, row-major
-  __shared__ __align__(16) __nv_bfloat16 gt[kChunk * kLd];  // ... transposed
-  __shared__ float ms[kChunk], ls[kChunk], dd[kChunk];
+                                long long dout_token_stride, int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = blockDim.x >> 1;  // 16 key rows a warp
+  const int bias_ld = rows + kBiasPad;
+  __nv_bfloat16* const ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* const vs = ks + rows * kLd;
+  __nv_bfloat16* const ring = vs + rows * kLd;  // stage i: queries, then output gradients
+  float* const stat_ring = reinterpret_cast<float*>(ring + 4 * kChunk * kLd);  // lse, D
+  float* const bias_ring = stat_ring + 4 * kChunk;
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = blockIdx.x * kChunk + warp * 16;  // this warp's first key row
-  const int keys[2] = {row0 + g, row0 + g + 8};
+  const int g = lane_id() >> 2;
+  const int t = lane_id() & 3;
+  const int kb0 = blockIdx.x * rows;  // the block's first key row
+  const int wrow = 16 * warp;
+  const int w0 = kb0 + wrow;  // the warp's first key row
   const long long head = b * batch_stride + h * kHeadDim;
-  const long long plane = static_cast<long long>(gridDim.z) * heads * seq;
+  const long long dhead = b * dout_batch_stride + h * kHeadDim;
   const long long stat0 = (static_cast<long long>(b) * heads + h) * seq;
+  const int first = causal ? kb0 / kChunk : 0;  // queries before the block's keys see none
+  const int nchunks = (seq + kChunk - 1) / kChunk;
+  const float scale2 = scale * kLog2e;
+  const float sc = bias == nullptr ? scale2 : 1.f;  // as in the dq kernel
 
-  uint32_t ka[4][4], va[4][4];
-  load_a_rows(k + head, token_stride, row0, seq, ka);
-  load_a_rows(v + head, token_stride, row0, seq, va);
-
-  float adk[8][4], adv[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) adk[nt][e] = adv[nt][e] = 0.f;
-
-  for (int q0 = 0; q0 < seq; q0 += kChunk) {
-    __syncthreads();
-    stage(q + head, token_stride, q0, seq, qs, qt);
-    stage(dout + b * dout_batch_stride + h * kHeadDim, dout_token_stride, q0, seq, gs, gt);
+  auto issue = [&](int j) {
+    const int q0 = j * kChunk;
+    const int n = 16 * chunk_tiles(q0, seq);
+    __nv_bfloat16* const st = ring + (j & 1) * 2 * kChunk * kLd;
+    stage_async(q + head + q0 * token_stride, token_stride, n, seq - q0, st);
+    stage_async(dout + dhead + q0 * dout_token_stride, dout_token_stride, n, seq - q0,
+                st + kChunk * kLd);
+    float* const sr = stat_ring + (j & 1) * 2 * kChunk;
     for (int i = threadIdx.x; i < kChunk; i += blockDim.x) {
-      const bool live = q0 + i < seq;  // rows past the end: p = 0 below
-      ms[i] = live ? stats[stat0 + q0 + i] : 0.f;
-      ls[i] = live ? stats[plane + stat0 + q0 + i] : 1.f;
-      dd[i] = live ? stats[2 * plane + stat0 + q0 + i] : 0.f;
+      const bool in = q0 + i < seq;
+      cp_async4(sr + i, lse + stat0 + (in ? q0 + i : 0), in ? 4 : 0);
+      cp_async4(sr + kChunk + i, dstat + stat0 + (in ? q0 + i : 0), in ? 4 : 0);
     }
+    if (bias != nullptr) {
+      stage_bias(bias, seq, q0, kb0, kChunk, rows, bias_ring + (j & 1) * kChunk * bias_ld);
+    }
+  };
+  stage_async(k + head + kb0 * token_stride, token_stride, rows, seq - kb0, ks);
+  stage_async(v + head + kb0 * token_stride, token_stride, rows, seq - kb0, vs);
+  issue(first);
+  cp_async_commit();
+
+  const bool live = w0 < seq;
+  float adk[8][4], adv[8][4];
+  zero(adk);
+  zero(adv);
+  for (int j = first; j < nchunks; ++j) {
+    cp_async_wait<0>();
     __syncthreads();
-    if (row0 >= seq) continue;
+    if (j + 1 < nchunks) {
+      issue(j + 1);
+      cp_async_commit();
+    }
+    if (!live) continue;
+    const int q0 = j * kChunk;
+    // query tiles wholly before the warp's first key are masked for all its keys
+    const int qt0 = causal ? max(0, (w0 - q0) >> 4) : 0;
+    const int nqt = chunk_tiles(q0, seq);
+    const __nv_bfloat16* const qc = ring + (j & 1) * 2 * kChunk * kLd;
+    const __nv_bfloat16* const dc = qc + kChunk * kLd;
+    const float* const ls = stat_ring + (j & 1) * 2 * kChunk;
+    const float* const ds_ = ls + kChunk;
+    const float* const bs = bias_ring + (j & 1) * kChunk * bias_ld + wrow;
+    for (int qt = qt0; qt < nqt; ++qt) {
+      float st[2][4], dpt[2][4];  // [key][query] tiles of s^T and dp^T
+      {
+        // k and v fragments come again from shared memory for each tile,
+        // which keeps them out of the registers between tiles
+        uint32_t a[4][4];
+        load_rows(a, ks, wrow);
+        product16(a, qc, qt * 16, st);
+        load_rows(a, vs, wrow);
+        product16(a, dc, qt * 16, dpt);
+      }
+      // a mask only where the tile crosses S or the diagonal
+      const bool whole = q0 + 16 * qt + 16 <= seq && (!causal || q0 + 16 * qt >= w0 + 15);
+      float l2[2][2], dcol[2][2];  // lse2 and D of this thread's query columns
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {  // 32 queries at a time
-      float st[4][4], dpt[4][4];  // [key][query] tiles of p^T and dp^T
-      product_rows<4>(ka, qs, half * 32, st);
-      product_rows<4>(va, gs, half * 32, dpt);
+      for (int n = 0; n < 2; ++n) {
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = half * 32 + nt * 8 + 2 * t + (e & 1);  // query in the chunk
-          const float x = logit(st[nt][e], scale, bias, q0 + c, keys[e >> 1], seq);
-          const float p = x == -INFINITY ? 0.f : expf(x - ms[c]) / ls[c];
-          st[nt][e] = p;
-          dpt[nt][e] = p * (dpt[nt][e] - dd[c]);  // ds^T
+        for (int j = 0; j < 2; ++j) {
+          const int c = qt * 16 + n * 8 + 2 * t + j;
+          l2[n][j] = ls[c] * kLog2e;
+          dcol[n][j] = ds_[c];
         }
       }
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        accumulate_fp32_a(adv, st[2 * kk], st[2 * kk + 1], gt, half * 32 + kk * 16);
-        accumulate_fp32_a(adk, dpt[2 * kk], dpt[2 * kk + 1], qt, half * 32 + kk * 16);
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const int c = qt * 16 + n * 8 + 2 * t + (e & 1);  // query in the chunk
+          float x = st[n][e];
+          if (bias != nullptr) x = fmaf(bs[c * bias_ld + g + 8 * i], kLog2e, x * scale2);
+          float p = exp2_approx(fmaf(x, sc, -l2[n][e & 1]));
+          if (!whole && (q0 + c >= seq || (causal && q0 + c < w0 + g + 8 * i))) p = 0.f;
+          st[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - dcol[n][e & 1]);  // ds^T
+        }
       }
+      uint32_t hi[4], lo[4];
+      a_from_c(st, hi, lo);
+      accumulate2(adv, hi, lo, dc, qt * 16);
+      a_from_c(dpt, hi, lo);
+      accumulate2(adk, hi, lo, qc, qt * 16);
     }
   }
-  if (row0 >= seq) return;
+  if (!live) return;
   const long long out0 = (static_cast<long long>(b) * seq * heads + h) * kHeadDim;
   const long long out_stride = static_cast<long long>(heads) * kHeadDim;
-  const float one[2] = {1.f, 1.f}, mul[2] = {scale, scale};
-  store_rows(adv, one, dv + out0, out_stride, row0, seq);
-  store_rows(adk, mul, dk + out0, out_stride, row0, seq);
+  store_rows(adv, 1.f, dv + out0, out_stride, w0, seq);
+  store_rows(adk, scale, dk + out0, out_stride, w0, seq);
 }
 
 }  // namespace
@@ -259,32 +332,45 @@ flash_attention_bwd_dkdv_kernel(const __nv_bfloat16* __restrict__ q,
 // q, k, v: [batch, seq, heads, 64] bf16 views sharing `batch_stride` and
 // `token_stride`; dout: the same shape with its own strides (elements; heads
 // at a stride of 64, 16-byte aligned rows); bias: [seq, seq] fp32 contiguous
-// or null; dq, dk, dv: [batch, seq, heads, 64] bf16 contiguous; stats: fp32
-// scratch of 3 * batch * heads * seq. Two launches on `stream`, in order; does
-// not synchronise.
+// or null; causal != 0 masks keys above the diagonal; lse: the forward's
+// [batch, heads, seq] fp32; dq, dk, dv: [batch, seq, heads, 64] bf16
+// contiguous; dstat: fp32 scratch [batch, heads, seq] (D). Two launches on
+// `stream`, in order; does not synchronise.
 ILVLM_API int flash_attention_bwd(const void* q, const void* k, const void* v, const void* bias,
-                                  const void* dout, void* dq, void* dk, void* dv, void* stats,
-                                  int batch, int seq, int heads, long long batch_stride,
-                                  long long token_stride, long long dout_batch_stride,
-                                  long long dout_token_stride, float scale, void* stream) {
+                                  const void* lse, const void* dout, void* dq, void* dk, void* dv,
+                                  void* dstat, int batch, int seq, int heads,
+                                  long long batch_stride, long long token_stride,
+                                  long long dout_batch_stride, long long dout_token_stride,
+                                  int causal, float scale, void* stream) {
   if (batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || seq < 1 || seq > kMaxSeq) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid((seq + kChunk - 1) / kChunk, heads, batch);
+  static unsigned long long configured_dq = 0, configured_dkdv = 0;
+  cudaError_t err = allow_smem(flash_attention_bwd_dq_kernel, dq_smem_bytes(kMaxWarps, true),
+                               configured_dq);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(flash_attention_bwd_dkdv_kernel, dkdv_smem_bytes(kMaxWarps, true),
+                   configured_dkdv);
+  if (err != cudaSuccess) return err;
+  const int warps = block_warps(seq);
+  const dim3 grid((seq + 16 * warps - 1) / (16 * warps), heads, batch);
+  const bool with_bias = bias != nullptr;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* q_ = static_cast<const __nv_bfloat16*>(q);
   const auto* k_ = static_cast<const __nv_bfloat16*>(k);
   const auto* v_ = static_cast<const __nv_bfloat16*>(v);
   const auto* bias_ = static_cast<const float*>(bias);
+  const auto* lse_ = static_cast<const float*>(lse);
   const auto* dout_ = static_cast<const __nv_bfloat16*>(dout);
-  flash_attention_bwd_dq_kernel<<<grid, kWarps * 32, 0, st>>>(
-      q_, k_, v_, bias_, dout_, static_cast<__nv_bfloat16*>(dq), static_cast<float*>(stats),
-      seq, heads, batch_stride, token_stride, dout_batch_stride, dout_token_stride, scale);
-  cudaError_t err = cudaGetLastError();
+  flash_attention_bwd_dq_kernel<<<grid, warps * 32, dq_smem_bytes(warps, with_bias), st>>>(
+      q_, k_, v_, bias_, dout_, lse_, static_cast<__nv_bfloat16*>(dq),
+      static_cast<float*>(dstat), seq, heads, batch_stride, token_stride, dout_batch_stride,
+      dout_token_stride, causal, scale);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_attention_bwd_dkdv_kernel<<<grid, kWarps * 32, 0, st>>>(
-      q_, k_, v_, bias_, dout_, static_cast<const float*>(stats),
+  flash_attention_bwd_dkdv_kernel<<<grid, warps * 32, dkdv_smem_bytes(warps, with_bias), st>>>(
+      q_, k_, v_, bias_, dout_, lse_, static_cast<const float*>(dstat),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), seq, heads,
-      batch_stride, token_stride, dout_batch_stride, dout_token_stride, scale);
+      batch_stride, token_stride, dout_batch_stride, dout_token_stride, causal, scale);
   return cudaGetLastError();
 }

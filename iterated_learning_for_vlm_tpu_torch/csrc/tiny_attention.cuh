@@ -15,26 +15,7 @@
 namespace ilvlm {
 namespace tiny {
 
-constexpr int kHeadDim = 64;
-constexpr int kLd = kHeadDim + 8;  // bf16 row stride of a staged [S16][64] tile
 constexpr int kMaxSeq = 128;
-
-__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
-
-// Issue the copies of rows 0 .. S16 - 1 of one head's 64 columns (`src` at
-// row 0, rows `row_stride` elements apart) into `tile`; rows >= seq are
-// zero-filled. The block's threads split the 16-byte chunks.
-template <int kS16>
-__device__ __forceinline__ void stage_async(const __nv_bfloat16* __restrict__ src,
-                                            long long row_stride, int seq,
-                                            __nv_bfloat16* tile) {
-  for (int idx = threadIdx.x; idx < kS16 * 8; idx += blockDim.x) {
-    const int r = idx >> 3;
-    const int c = (idx & 7) * 8;
-    const bool live = r < seq;
-    cp_async16(tile + r * kLd + c, src + (live ? r : 0) * row_stride + c, live ? 16 : 0);
-  }
-}
 
 // Add the head's 64 bias values to the staged rows < seq, in bf16 as the
 // unfused path adds the in_proj bias. Each thread touches the chunks it
@@ -55,37 +36,6 @@ __device__ __forceinline__ void add_bias(__nv_bfloat16* tile,
     for (int i = 0; i < 4; ++i) x[i] = __hadd2(x[i], y[i]);
     *p = v;
   }
-}
-
-// A fragments of the 16 x 16 block at (row0, col0) of a row-major tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* tile, int ld,
-                                       int row0, int col0) {
-  const int l = lane_id();
-  ldmatrix_x4(a, tile + (row0 + (l & 15)) * ld + col0 + (l >> 4) * 8);
-}
-
-// A fragments of the 16 x 16 block at (m0, k0) of A = T^T, for a tile T
-// stored [k][m] (rows are A's columns).
-__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const __nv_bfloat16* tile, int ld,
-                                         int m0, int k0) {
-  const int l = lane_id();
-  ldmatrix_x4_trans(a, tile + (k0 + (l & 7) + ((l >> 4) & 1) * 8) * ld + m0 + ((l >> 3) & 1) * 8);
-}
-
-// B fragments (k16 at k0) of the two n8 tiles n0 and n0 + 8, for B stored
-// [n][k] (a tile whose rows are B's columns, e.g. keys for q k^T):
-// b[0], b[1] for tile n0; b[2], b[3] for tile n0 + 8.
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const __nv_bfloat16* tile, int ld,
-                                          int n0, int k0) {
-  const int l = lane_id();
-  ldmatrix_x4(b, tile + (n0 + (l & 7) + ((l >> 4) << 3)) * ld + k0 + ((l >> 3) & 1) * 8);
-}
-
-// The same for B stored [k][n] (a row-major tile, e.g. values for p v).
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const __nv_bfloat16* tile, int ld,
-                                          int k0, int n0) {
-  const int l = lane_id();
-  ldmatrix_x4_trans(b, tile + (k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + n0 + (l >> 4) * 8);
 }
 
 // acc[nt] (16 rows x 64 columns, 8 n8 tiles) += A (16 x 16, fragments a)
@@ -177,45 +127,10 @@ __device__ __forceinline__ void softmax_rows(float (&s)[kNt][4], int row0, int s
     for (int e = 0; e < 4; ++e) s[nt][e] = nt < nt_end ? s[nt][e] * inv[e >> 1] : 0.f;
 }
 
-// Store a warp's 16 x 64 fp32 result times `mul` as bf16 into rows
-// row0 .. row0 + 15 (those < seq) of a [rows][row_stride] matrix, `dst` at
-// row 0 of the head's 64 columns.
-__device__ __forceinline__ void store_rows(const float (&acc)[8][4], float mul,
-                                           __nv_bfloat16* dst, long long row_stride, int row0,
-                                           int seq) {
-  const int l = lane_id();
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row0 + (l >> 2) + 8 * half;
-    if (r >= seq) continue;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + r * row_stride + nt * 8 + 2 * (l & 3)) =
-          __floats2bfloat162_rn(acc[nt][2 * half] * mul, acc[nt][2 * half + 1] * mul);
-    }
-  }
-}
-
 // The key tiles (8 keys each) a warp's 16 query rows from row0 need: none
 // past the sequence, none above the diagonal when causal.
 __device__ __forceinline__ int key_tiles(int row0, int seq, bool causal, int nt_max) {
   return min((seq + 7) >> 3, causal ? (row0 >> 3) + 2 : nt_max);
-}
-
-// Raise a kernel's dynamic shared-memory cap once per device (`done` is the
-// caller's per-kernel record of the devices already set).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, unsigned long long& done) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess) done |= bit;
-  return err;
 }
 
 }  // namespace tiny

@@ -77,12 +77,12 @@ tiny_attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
   const long long row_stride = 3LL * d_model;
   // two copy groups: q and k, then v and do, which land while q k^T runs
   const __nv_bfloat16* const src = qkv + b * seq * row_stride + h * kHeadDim;
-  stage_async<kS16>(src, row_stride, seq, qs);
-  stage_async<kS16>(src + d_model, row_stride, seq, ks);
+  stage_async(src, row_stride, kS16, seq, qs);
+  stage_async(src + d_model, row_stride, kS16, seq, ks);
   cp_async_commit();
-  stage_async<kS16>(src + 2 * d_model, row_stride, seq, vs);
-  stage_async<kS16>(dout + b * seq * static_cast<long long>(d_model) + h * kHeadDim, d_model,
-                    seq, dos);
+  stage_async(src + 2 * d_model, row_stride, kS16, seq, vs);
+  stage_async(dout + b * seq * static_cast<long long>(d_model) + h * kHeadDim, d_model, kS16,
+              seq, dos);
   cp_async_commit();
   cp_async_wait<1>();
   if (bias3 != nullptr) {

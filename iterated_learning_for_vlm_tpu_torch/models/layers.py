@@ -9,9 +9,10 @@ computes in its ``dtype`` (bf16 for serving), as the flax modules do.
 - ``LayerNorm`` normalises in fp32 and casts back (eps 1e-5).
 - ``MultiheadAttention`` has three routes, with the JAX precedence:
   ``use_flash`` takes flash attention (``ops/flash_attention.py``, K3-fwd and
-  K3-bwd through ``FlashAttention``, any S; fp32 value product) and turns the
-  fused route off; else ``fused_attn`` at S <= 128 takes the tiny-sequence
-  kernels (``ops/fused_attention.py``, K2-fwd and K2-bwd through
+  K3-bwd through ``FlashAttention``, any S; fp32 value product; the causal
+  mask as a flag, no bias tensor) and turns the fused route off; else
+  ``fused_attn`` at S <= 128 takes the tiny-sequence kernels
+  (``ops/fused_attention.py``, K2-fwd and K2-bwd through
   ``TinyAttention``, which gives ``in_proj_bias`` its gradient); else the
   plain path. The fused and plain routes have the same numerics (fp32 logits
   and softmax, value product in the operand dtype).
@@ -135,7 +136,7 @@ class MultiheadAttention(nn.Module):
         elif self.use_flash:  # [B, S, H, hd] views of the packed columns, no copy
             q, k, v = (t.reshape(b, s, self.heads, d // self.heads)
                        for t in qkv.split(d, dim=-1))
-            out = flash_attention(q, k, v, causal_bias(s, x.device) if causal else None)
+            out = flash_attention(q, k, v, causal=causal)
             out = out.reshape(b, s, d)
         else:
             out = attention_reference(qkv, self.heads,

@@ -120,9 +120,10 @@ def test_flash_route_takes_no_fused_kernel(jax_params, monkeypatch):
     calls = []
     monkeypatch.setattr(layers, "fused_tiny_attention", lambda *a, **k: calls.append(1))
     monkeypatch.setattr(layers, "flash_attention",
-                        lambda *a, **k: calls.append(0) or layers.attention_reference(
+                        lambda *a, causal=False: calls.append(0) or layers.attention_reference(
                             torch.cat([t.flatten(2) for t in a[:3]], -1), a[0].shape[2],
-                            a[3]).unflatten(2, a[0].shape[2:]))
+                            layers.causal_bias(a[0].shape[1]) if causal else None
+                        ).unflatten(2, a[0].shape[2:]))
     images, tokens, pad = make_batch(1, 2)
     with torch.no_grad():
         _port(jax_params, clip_cfg("flash"))(torch.from_numpy(images),

@@ -38,6 +38,9 @@ POOL_BWD_ATOL, POOL_BWD_RTOL = 1e-4, 8e-3
 # in another summation order and round once to bf16: one bf16 ulp of |ref|
 # (<= 2^-7 relative), plus 1e-3 for fp32 noise on values near 0.
 FLASH_ATOL, FLASH_RTOL = 1e-3, 2.0 ** -7
+# K3-fwd's lse: the log-sum-exp of the same fp32 logits (bf16 products summed
+# in another order), in base 2 with one log per row: ~1e-6 at |lse| <= 10.
+LSE_ATOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -146,7 +149,8 @@ def test_tiny_attention_function_bias_grad(dev):
 def _flash_case(dev, b, s, h, bias_kind, seed):
     """q, k, v as the [B, S, H, 64] column-block views of one packed
     [B, S, 3D] tensor (the tower route's layout), a contiguous output
-    gradient and the bias: none, causal, or arbitrary with some -inf."""
+    gradient, the bias (none, causal, or arbitrary with some -inf) and the
+    causal flag ("flag": the causal mask by index, no bias)."""
     g = _gen(seed)
     d = 64 * h
     qkv = torch.randn(b, s, 3 * d, generator=g, device=dev).to(torch.bfloat16)
@@ -159,7 +163,7 @@ def _flash_case(dev, b, s, h, bias_kind, seed):
         bias = torch.randn(s, s, generator=g, device=dev)
         bias[torch.rand(s, s, generator=g, device=dev) < 0.2] = float("-inf")
         bias[:, 0] = 0.0
-    return q, k, v, dout, bias
+    return q, k, v, dout, bias, bias_kind == "flag"
 
 
 def _assert_flash_close(name, got, ref):
@@ -168,45 +172,69 @@ def _assert_flash_close(name, got, ref):
     assert torch.all(err <= FLASH_ATOL + FLASH_RTOL * ref.float().abs()), (name, err.max().item())
 
 
-@pytest.mark.parametrize("b,s,h,bias_kind", [
-    (3, 1, 2, "none"), (2, 32, 8, "causal"), (4, 50, 12, "none"), (2, 77, 8, "causal"),
-    (2, 197, 12, "none"), (2, 257, 16, "none"), (2, 257, 4, "causal"), (2, 100, 4, "random"),
-    (1, 1024, 2, "causal"),
-])
+# the tower shapes (text S=32 and 77 causal, vision S=50, ViT-B/16 S=197,
+# L/14 S=257), the edges (S=1, the S bound) and an arbitrary bias; every
+# causal case both by the flag and by the causal bias
+FLASH_CASES = [
+    (3, 1, 2, "none"), (2, 32, 8, "causal"), (2, 32, 8, "flag"), (4, 50, 12, "none"),
+    (2, 77, 8, "causal"), (2, 77, 8, "flag"), (2, 197, 12, "none"), (2, 257, 16, "none"),
+    (2, 257, 4, "causal"), (2, 257, 4, "flag"), (2, 100, 4, "random"), (1, 1024, 2, "causal"),
+    (1, 1024, 2, "flag"), (2, 1024, 1, "none"),
+]
+
+
+@pytest.mark.parametrize("b,s,h,bias_kind", FLASH_CASES)
 def test_flash_attention_kernels_match_plain(dev, b, s, h, bias_kind):
-    """K3-fwd and K3-bwd against their plain versions at the tower shapes
-    (text S=32 and 77 causal, vision S=50, ViT-B/16 S=197, L/14 S=257), the
-    edges (S=1, the S bound) and an arbitrary bias; one launch count each."""
-    q, k, v, dout, bias = _flash_case(dev, b, s, h, bias_kind, seed=s)
+    """K3-fwd (with lse) and K3-bwd (from the plain version's lse) against
+    their plain versions; one launch count each."""
+    q, k, v, dout, bias, causal = _flash_case(dev, b, s, h, bias_kind, seed=s)
+    ref_out, ref_lse = fl.flash_attention_lse_reference(q, k, v, bias, causal)
     before = (fl.flash_attention_fwd.launches, fl.flash_attention_bwd.launches)
-    out = fl.flash_attention_fwd(q, k, v, bias)
-    grads = fl.flash_attention_bwd(q, k, v, bias, dout)
+    out, _ = fl.flash_attention_fwd(q, k, v, bias, causal, with_lse=True)
+    grads = fl.flash_attention_bwd(q, k, v, bias, ref_lse, dout, causal)
     torch.cuda.synchronize()
     assert (fl.flash_attention_fwd.launches, fl.flash_attention_bwd.launches) == (
         before[0] + 1, before[1] + 1)
-    _assert_flash_close("out", out, fl.flash_attention_reference(q, k, v, bias))
-    refs = fl.flash_attention_bwd_reference(q, k, v, bias, dout)
+    _assert_flash_close("out", out, ref_out)
+    refs = fl.flash_attention_bwd_reference(q, k, v, bias, ref_lse, dout, causal)
     for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
         _assert_flash_close(name, got, ref)
 
 
-def test_flash_attention_bwd_repeats_bit_for_bit(dev):
+@pytest.mark.parametrize("b,s,h,bias_kind", [
+    (3, 1, 2, "none"), (2, 77, 8, "flag"), (2, 77, 8, "causal"), (2, 197, 12, "none"),
+    (2, 100, 4, "random"), (1, 1024, 2, "flag"),
+])
+def test_flash_attention_lse_matches_plain(dev, b, s, h, bias_kind):
+    """K3-fwd's row log-sum-exp against the plain version's (fp32 sums of the
+    same bf16 products in another order, taken in base 2: LSE_ATOL), and the
+    serving call (no lse) gives the same output bit for bit."""
+    q, k, v, _, bias, causal = _flash_case(dev, b, s, h, bias_kind, seed=s + 500)
+    out, lse = fl.flash_attention_fwd(q, k, v, bias, causal, with_lse=True)
+    _, ref = fl.flash_attention_lse_reference(q, k, v, bias, causal)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    err = (lse - ref).abs().max().item()
+    assert err <= LSE_ATOL, err
+    assert torch.equal(out, fl.flash_attention_fwd(q, k, v, bias, causal))
+
+
+@pytest.mark.parametrize("s,h,bias_kind", [(197, 12, "none"), (77, 8, "flag")])
+def test_flash_attention_bwd_repeats_bit_for_bit(dev, s, h, bias_kind):
     """Every gradient element has one owner summing in a fixed order (no
     float atomics), so two calls agree bit for bit."""
-    q, k, v, dout, bias = _flash_case(dev, 8, 197, 12, "none", seed=3)
-    first = fl.flash_attention_bwd(q, k, v, bias, dout)
-    second = fl.flash_attention_bwd(q, k, v, bias, dout)
+    q, k, v, dout, bias, causal = _flash_case(dev, 8, s, h, bias_kind, seed=s + 3)
+    _, lse = fl.flash_attention_fwd(q, k, v, bias, causal, with_lse=True)
+    first = fl.flash_attention_bwd(q, k, v, bias, lse, dout, causal)
+    second = fl.flash_attention_bwd(q, k, v, bias, lse, dout, causal)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
-    q, k, v, dout, bias = _flash_case(dev, 8, 77, 8, "causal", seed=4)
-    first = fl.flash_attention_bwd(q, k, v, bias, dout)
-    assert all(torch.equal(a, b) for a, b in zip(first, fl.flash_attention_bwd(q, k, v, bias,
-                                                                               dout)))
 
 
-def test_flash_attention_function_autograd(dev):
+@pytest.mark.parametrize("route", ["flag", "bias"])
+def test_flash_attention_function_autograd(dev, route):
     """Autograd through ``flash_attention`` from the packed tensor: the
-    [B, S, 3D] gradient is the kernels' dq | dk | dv, against the plain
-    backward; the bias gets none."""
+    [B, S, 3D] gradient is the kernels' dq | dk | dv (the backward from the
+    forward's saved lse), against the plain backward; the causal mask as
+    the flag or as a bias, which gets no gradient."""
     b, s, h = 3, 77, 8
     g = _gen(11)
     qkv = torch.randn(b, s, 3 * 64 * h, generator=g, device=dev).to(torch.bfloat16)
@@ -214,9 +242,13 @@ def test_flash_attention_function_autograd(dev):
     dout = torch.randn(b, s, h, 64, generator=g, device=dev).to(torch.bfloat16)
     bias = fa.causal_bias(s, dev).requires_grad_()
     q, k, v = (t.reshape(b, s, h, 64) for t in qkv.split(64 * h, dim=-1))
-    fl.flash_attention(q, k, v, bias[None, None]).backward(dout)
-    refs = fl.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(), bias.detach(),
-                                            dout)
+    if route == "flag":
+        fl.flash_attention(q, k, v, causal=True).backward(dout)
+    else:
+        fl.flash_attention(q, k, v, bias[None, None]).backward(dout)
+    q, k, v = (t.detach() for t in (q, k, v))
+    _, lse = fl.flash_attention_lse_reference(q, k, v, bias.detach())
+    refs = fl.flash_attention_bwd_reference(q, k, v, bias.detach(), lse, dout)
     for name, got, ref in zip(("dq", "dk", "dv"), qkv.grad.split(64 * h, dim=-1), refs):
         _assert_flash_close(name, got.reshape(b, s, h, 64), ref)
     assert bias.grad is None
@@ -325,8 +357,11 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(dev):
     with pytest.raises(ValueError, match="S <="):
         fl.flash_attention_fwd(big, big, big)
     qh = torch.zeros(2, 4, 1, 64, dtype=bf, device=dev)
+    lse = torch.zeros(2, 1, 4, device=dev)
     with pytest.raises(ValueError, match="dout"):
-        fl.flash_attention_bwd(qh, qh, qh, None, torch.zeros(2, 4, 1, 64, device=dev))
+        fl.flash_attention_bwd(qh, qh, qh, None, lse, torch.zeros(2, 4, 1, 64, device=dev))
+    with pytest.raises(ValueError, match="lse"):
+        fl.flash_attention_bwd(qh, qh, qh, None, lse.to(bf), qh)
     with pytest.raises(ValueError, match="D <="):
         cb.codebook_pool_bwd_dsd(torch.zeros(2, 4, 1088, dtype=bf, device=dev),
                                  torch.zeros(8, 1088, dtype=bf, device=dev), None, 1.0,
@@ -441,3 +476,65 @@ def test_clip_flash_route_matches_plain_route(dev):
         cos = torch.nn.functional.cosine_similarity(ga.flatten().float(),
                                                     grads[1][name].flatten().float(), dim=0)
         assert cos.item() >= 0.99, (name, cos.item())
+
+
+def test_clip_flash_route_launch_counts(dev):
+    """A small bf16 CLIP with the baseline's 12 layers a tower on the flash
+    route: one train step launches K3-fwd and K3-bwd 24 times each and no
+    other kernel; serving images and texts at two context buckets launches
+    K3-fwd 36 times and nothing else."""
+    import numpy as np
+
+    from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder
+    from iterated_learning_for_vlm_tpu_torch.train import optim, schedule
+    from iterated_learning_for_vlm_tpu_torch.train.step import make_train_step
+    from iterated_learning_for_vlm_tpu_torch.train.train_state import TrainState
+
+    model = model_entry({"type": "clip_vitb32", "kwargs": {
+        "image_encode": {"input_resolution": 64, "patch_size": 16, "width": 128,
+                         "layers": 12, "heads": 2, "embed_dim": 64},
+        "text_encode": {"context_length": 77, "vocab_size": 300, "width": 128, "heads": 2,
+                        "layers": 12, "embed_dim": 64},
+        "use_flash": True, "dtype": "bfloat16"}}, device=dev, generator=_gen(0))
+    counted = (fa.tiny_attention_fwd, fa.tiny_attention_bwd, cb.codebook_pool_fwd,
+               cb.codebook_pool_bwd_dq, cb.codebook_pool_bwd_dsd, fl.flash_attention_fwd,
+               fl.flash_attention_bwd)
+
+    def launches(fn):
+        before = [c.launches for c in counted]
+        fn()
+        torch.cuda.synchronize()
+        return [c.launches - n for c, n in zip(counted, before)]
+
+    params = dict(model.named_parameters())
+    state = TrainState.create(params, optim.adamw_init(params),
+                              optim.trainable_mask_tree(params), None)
+    step = make_train_step(model, schedule.cosine(5e-5, 5e-4, 0.0, 10, 100),
+                           optim.build_wd_tree(params, 0.1, {}), is_fdt=False)
+    g = _gen(2)
+    tokens = torch.randint(1, 298, (4, 32), generator=g, device=dev)
+    tokens[:, 20] = 299
+    pad = torch.zeros(4, 32, device=dev)
+    pad[:, 21:] = float("-inf")
+    batch = {"image": torch.randn(4, 64, 64, 3, generator=g, device=dev), "tokens": tokens,
+             "pad_mask": pad}
+    assert launches(lambda: step(state, batch, 0.0)) == [0, 0, 0, 0, 0, 24, 24]
+
+    rng = np.random.default_rng(0)
+    enc = TorchEncoder(model, batch_size=4, text_buckets=(16, 32))
+    images = rng.standard_normal((4, 64, 64, 3), dtype=np.float32)
+    texts = []
+    for n in (30, 77):  # the ctx-32 bucket, then the full context
+        tok = np.zeros((4, 77), np.int64)
+        tok[:, :n] = rng.integers(1, 298, (4, n))
+        tok[:, n - 1] = 299
+        p = np.full((4, 77), -np.inf, np.float32)
+        p[:, :n] = 0.0
+        texts.append((tok, p))
+
+    def serve():
+        enc.encode_images(images)
+        for tok, p in texts:
+            enc.encode_texts_tokens(tok, p)
+
+    assert launches(serve) == [0, 0, 0, 0, 0, 36, 0]
