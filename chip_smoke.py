@@ -15,7 +15,8 @@ and depth, bf16, both kernels on, random weights from seed 0),
 1. device: fail without CUDA; print ``nvidia-smi`` name and power limit;
 2. build: compile the kernels from ``csrc/`` with nvcc;
 3. kernels: each forward kernel against its plain PyTorch version at the
-   main-path shapes, in bf16, max abs error beside the tolerance, and both
+   main-path shapes (K1 also at the text ctx-77 bucket and the ViT-B/16 image
+   tower's T=196), in bf16, max abs error beside the tolerance, and both
    times (CUDA events, in turns), beside the kernel's bound (the larger of
    its bytes over 3.35 TB/s and its bf16 operations over 989 TFLOP/s) and,
    for attention, the time of ``torch.nn.functional.scaled_dot_product_attention``
@@ -64,6 +65,11 @@ K2 route (as shipped, ``fused_attn: true``) and the plain route (neither):
 10. CLIP ViT-B/16 (S=197, which only K3 takes): one train step on the flash
    route (24 / 24 launches) against the plain route, a profile of one flash
    step (device time, K3's share, top ops) and one paired time.
+
+Every driven phase (4, 4b, 6, 7, 9, 10) also resets the plain-route counters
+(``attention_route.plain_routes``, ``codebook_route.plain_routes``: a kernel
+knob that got the plain path) just before and requires them at 0 just
+after, so the main path never slips onto the plain route unseen.
 
 Any failure exits non-zero. The line before the last is the kernels JSON
 (each kernel's train-step launches, error, times, bound and library time at
@@ -559,6 +565,24 @@ def reset_counters(*fns) -> None:
         fn.launches = 0
 
 
+def route_counters():
+    from iterated_learning_for_vlm_tpu_torch.models.fdt import codebook_route
+    from iterated_learning_for_vlm_tpu_torch.models.layers import attention_route
+
+    return attention_route, codebook_route
+
+
+def reset_routes() -> None:
+    for fn in route_counters():
+        fn.plain_routes = 0
+
+
+def check_routes(label: str) -> None:
+    """No kernel knob of the phase got the plain path."""
+    plain = {fn.__name__: fn.plain_routes for fn in route_counters()}
+    check(not any(plain.values()), f"{label}: a kernel knob took the plain route {plain}")
+
+
 def make_trainer(model, is_fdt: bool = True):
     """The bench trainer: masked AdamW at the CC3M config's lr schedule, weight
     decay and logit-scale clamp, on a fresh state (CLIP: no codebook, and the
@@ -618,9 +642,11 @@ def train_phase(model, plain, batch, counted, expected=TRAIN_LAUNCHES, is_fdt=Tr
     params_p, state_p, step_p = make_trainer(plain, is_fdt)
     sync()
     reset_counters(*counted.values())
+    reset_routes()
     metrics_k = step_k(state_k, batch, TRAIN_TEMPERATURE)
     sync()
     launches = {name: fn.launches for name, fn in counted.items()}
+    check_routes(label)
     metrics_p = step_p(state_p, batch, TRAIN_TEMPERATURE)
     loss_k, loss_p = metrics_k["loss"].item(), metrics_p["loss"].item()
     log(f"{label} bs{BATCH} ctx32: loss kernel path {loss_k:.6f}, plain path {loss_p:.6f} "
@@ -657,6 +683,7 @@ def il_phase(model, batch):
                        model=model)
     want = {n for n in params_k if n.startswith(TEXT_ROOTS) and any(k in n for k in REDRAWN)}
     losses = []
+    reset_routes()
     for i in range(1, 7):
         if i == 5:
             vision = {n: p.detach().clone() for n, p in params_k.items()
@@ -684,6 +711,7 @@ def il_phase(model, batch):
     check(not state_k.hold_codebook and all(
         v for n, v in state_k.trainable.items() if n != "visual.conv1.weight"),
         "something is still held or frozen after the IL window")
+    check_routes("IL")
     log(f"IL: losses {[round(x, 5) for x in losses]}; the reset after step 4 redrew "
         f"{len(want)} text leaves and zeroed their moments; step 5 kept the codebook at its "
         f"snapshot and the vision tower unmoved; after step 6 nothing is held or frozen")
@@ -705,9 +733,11 @@ def clip_serve_phase(encs, images, texts, counted):
     serve(encs["flash"])  # first call: library set-up, outside the counted run
     sync()
     reset_counters(*counted.values())
+    reset_routes()
     outs = serve(encs["flash"])
     sync()
     launches = {name: fn.launches for name, fn in counted.items()}
+    check_routes("CLIP serve")
     log(f"CLIP serve: {BATCH} images + {BATCH} texts @ctx32 + {BATCH} texts @ctx77 on the "
         f"flash route; launches {launches}")
     check(launches == CLIP_SERVE_LAUNCHES,
@@ -859,7 +889,9 @@ def main() -> int:
           attention_case(dev, f"text B={BATCH} S=77 H=8 causal", BATCH, 77, 8, True),
           attention_case(dev, f"text B={BATCH} S=32 H=8 causal", BATCH, 32, 8, True)]
     k1 = [pool_case(dev, f"image B={BATCH} T=49", BATCH, 49, False),
-          pool_case(dev, f"text B={BATCH} T=32 pads", BATCH, 32, True)]
+          pool_case(dev, f"text B={BATCH} T=32 pads", BATCH, 32, True),
+          pool_case(dev, f"text B={BATCH} T=77 pads", BATCH, 77, True),
+          pool_case(dev, f"B/16 image B={BATCH} T=196", BATCH, 196, False)]
     report["kernel_checks"] = {"tiny_attention_fwd": k2, "codebook_pool_fwd": k1}
 
     # 3b. backward kernels against their plain versions, main-path shapes
@@ -867,7 +899,9 @@ def main() -> int:
            attention_bwd_case(dev, f"text B={BATCH} S=77 H=8 causal", BATCH, 77, 8, True),
            attention_bwd_case(dev, f"text B={BATCH} S=32 H=8 causal", BATCH, 32, 8, True)]
     k1b = (pool_bwd_cases(dev, f"image B={BATCH} T=49", BATCH, 49, False)
-           + pool_bwd_cases(dev, f"text B={BATCH} T=32 pads", BATCH, 32, True))
+           + pool_bwd_cases(dev, f"text B={BATCH} T=32 pads", BATCH, 32, True)
+           + pool_bwd_cases(dev, f"text B={BATCH} T=77 pads", BATCH, 77, True)
+           + pool_bwd_cases(dev, f"B/16 image B={BATCH} T=196", BATCH, 196, False))
     report["kernel_checks"].update({"tiny_attention_bwd": k2b, "codebook_pool_bwd": k1b})
 
     # 3c. flash attention against its plain versions, the tower shapes
@@ -903,10 +937,12 @@ def main() -> int:
     torch.cuda.synchronize()
     fa.tiny_attention_fwd.launches = 0
     cb.codebook_pool_fwd.launches = 0
+    reset_routes()
     t0 = time.perf_counter()
     outs = serve(enc)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
+    check_routes("serve")
     launches = {"tiny_attention_fwd": fa.tiny_attention_fwd.launches,
                 "codebook_pool_fwd": cb.codebook_pool_fwd.launches}
     log(f"serve: {BATCH} images + {BATCH} texts @ctx32 + {BATCH} texts @ctx77 in {serve_s:.3f} s "
@@ -946,8 +982,10 @@ def main() -> int:
     enc.encode_texts(CAPTIONS[:1])  # first call: loads the tokenizer's vocabulary
     torch.cuda.synchronize()
     fa.tiny_attention_fwd.launches = cb.codebook_pool_fwd.launches = 0
+    reset_routes()
     emb = enc.encode_texts(CAPTIONS)
     torch.cuda.synchronize()
+    check_routes("captions")
     caption_launches = {"tiny_attention_fwd": fa.tiny_attention_fwd.launches,
                         "codebook_pool_fwd": cb.codebook_pool_fwd.launches}
     cat = enc.tokenizer(CAPTIONS[:1], context_length=77)[0][0, :len(CAT_TOKENS)].tolist()

@@ -187,4 +187,19 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, unsigned long long& done) {
   return err;
 }
 
+// The current device's SM count, asked once per device.
+inline cudaError_t sm_count(int& sms) {
+  static int known[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int& slot = known[dev & 63];
+  if (slot == 0) {
+    err = cudaDeviceGetAttribute(&slot, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  sms = slot;
+  return cudaSuccess;
+}
+
 }  // namespace ilvlm

@@ -8,7 +8,11 @@ sigmoid), and dual logit scales.
 
 ``QueryModel`` keeps both of the JAX branches with their own operation order:
 the fused branch (``use_fused_kernel`` with sparsemax, kernels K1-fwd and
-K1-bwd) and the plain branch; both are differentiable. The FDT temperature is
+K1-bwd) and the plain branch; both are differentiable. :func:`codebook_route`
+decides from the input whether the kernels can take it (on a CUDA device:
+bf16 q, ``sd_dim`` a multiple of 64 and at most 1024; any T); when the knob
+asked and they cannot, the call takes the plain branch and
+``codebook_route.plain_routes`` counts it. The FDT temperature is
 a call argument, so a decay schedule changes it without touching the model.
 """
 from __future__ import annotations
@@ -40,6 +44,23 @@ class FDTConfig:
     sd_temperature: float = 1000.0
     sparsemax_method: str = "sort"  # sort | bisect
     use_fused_kernel: bool = False  # fused codebook pooling kernel (K1)
+
+
+def codebook_route(q: torch.Tensor, sd_dim: int) -> bool:
+    """Whether the fused codebook kernels (K1) take ``q [B, T, sd_dim]``: on a
+    CUDA device they need bf16 and ``sd_dim`` a multiple of 64, at most
+    ``MAX_DEPTH``; a CPU tensor takes their plain versions, which take
+    anything. Called when the knob asks for K1; a refusal adds one to
+    ``codebook_route.plain_routes``."""
+    takes = q.device.type == "cpu" or (
+        q.dtype == torch.bfloat16 and sd_dim % codebook_attention.DEPTH_STEP == 0
+        and sd_dim <= codebook_attention.MAX_DEPTH)
+    if not takes:
+        codebook_route.plain_routes += 1
+    return takes
+
+
+codebook_route.plain_routes = 0
 
 
 class QueryModel(nn.Module):
@@ -80,7 +101,7 @@ class QueryModel(nn.Module):
         q = self.q_map(ft.to(self.dtype))
 
         if (self.use_fused_kernel and not return_token_att
-                and self.att_func_type == "sparsemax"):
+                and self.att_func_type == "sparsemax" and codebook_route(q, self.sd_dim)):
             keep = None if mask is None else (mask == 0)
             return codebook_attention.fused_codebook_attention(
                 q, sd, keep_mask=keep, temperature=temperature, pool_type=self.pool_type)

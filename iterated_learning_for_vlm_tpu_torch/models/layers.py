@@ -9,13 +9,16 @@ computes in its ``dtype`` (bf16 for serving), as the flax modules do.
 - ``LayerNorm`` normalises in fp32 and casts back (eps 1e-5).
 - ``MultiheadAttention`` has three routes, with the JAX precedence:
   ``use_flash`` takes flash attention (``ops/flash_attention.py``, K3-fwd and
-  K3-bwd through ``FlashAttention``, any S; fp32 value product; the causal
-  mask as a flag, no bias tensor) and turns the fused route off; else
-  ``fused_attn`` at S <= 128 takes the tiny-sequence kernels
-  (``ops/fused_attention.py``, K2-fwd and K2-bwd through
-  ``TinyAttention``, which gives ``in_proj_bias`` its gradient); else the
-  plain path. The fused and plain routes have the same numerics (fp32 logits
-  and softmax, value product in the operand dtype).
+  K3-bwd through ``FlashAttention``; fp32 value product; the causal mask as a
+  flag, no bias tensor) and turns the fused route off; else ``fused_attn`` at
+  S <= 128 takes the tiny-sequence kernels (``ops/fused_attention.py``, K2-fwd
+  and K2-bwd through ``TinyAttention``, which gives ``in_proj_bias`` its
+  gradient); else the plain path. The fused and plain routes have the same
+  numerics (fp32 logits and softmax, value product in the operand dtype).
+  :func:`attention_route` decides from the input's dtype and shape: on a CUDA
+  device a kernel route needs bf16 and head width 64 (and S <= 1024 for K3),
+  else the call takes the plain path and ``attention_route.plain_routes``
+  counts it.
 - ``Transformer`` is a plain ``nn.ModuleList``: the JAX scan, remat and unroll
   are XLA compile strategies, so their knobs are accepted and ignored, as are
   the TPU tiling knobs of the fused attention kernel.
@@ -31,8 +34,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import flash_attention as fl
+from ..ops import fused_attention as fa
 from ..ops.flash_attention import flash_attention
-from ..ops.fused_attention import MAX_SEQ, attention_reference, causal_bias, fused_tiny_attention
+from ..ops.fused_attention import attention_reference, causal_bias, fused_tiny_attention
 from .initializers import scaled_normal, torch_bias_uniform
 
 
@@ -97,6 +102,36 @@ def packed_in_proj(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dt
     return y, bias
 
 
+def attention_route(use_flash: bool, fused_attn: bool, seq: int, head_dim: int, dtype,
+                    device) -> str:
+    """The route of one attention call: "flash" (K3), "fused" (K2) or "plain".
+
+    ``fused_attn`` keeps the JAX rule, S <= 128 on every device
+    (``iterated_learning_for_vlm_tpu/models/layers.py:124``). On a CUDA
+    device a kernel also needs what it can take: bf16 and head width 64, and
+    S <= 1024 for K3 (a CPU tensor takes the kernels' plain versions, which
+    take anything). A knob that asked for a kernel and got the plain path
+    adds one to ``attention_route.plain_routes``."""
+    on_cpu = torch.device(device).type == "cpu"
+    if use_flash:
+        route = "flash"
+        takes = on_cpu or (dtype == torch.bfloat16 and head_dim == fl.HEAD_DIM
+                           and seq <= fl.MAX_SEQ)
+    elif fused_attn:
+        route = "fused"
+        takes = seq <= fa.MAX_SEQ and (on_cpu or (dtype == torch.bfloat16
+                                                  and head_dim == fa.HEAD_DIM))
+    else:
+        return "plain"
+    if takes:
+        return route
+    attention_route.plain_routes += 1
+    return "plain"
+
+
+attention_route.plain_routes = 0
+
+
 class MultiheadAttention(nn.Module):
     """Packed-QKV self-attention with torch ``nn.MultiheadAttention``'s
     parameter names. ``use_flash`` selects flash attention (K3) over the
@@ -127,13 +162,14 @@ class MultiheadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
         b, s, d = x.shape
-        use_fused = self.fused_attn and not self.use_flash and s <= MAX_SEQ
+        route = attention_route(self.use_flash, self.fused_attn, s, d // self.heads,
+                                self.dtype, x.device)
         qkv, in_bias = packed_in_proj(x, self.in_proj_weight, self.in_proj_bias,
-                                      self.dtype, add_bias=not use_fused)
-        if use_fused:
+                                      self.dtype, add_bias=route != "fused")
+        if route == "fused":
             out = fused_tiny_attention(qkv, self.heads, causal=causal,
                                        qkv_bias=in_bias.to(qkv.dtype))
-        elif self.use_flash:  # [B, S, H, hd] views of the packed columns, no copy
+        elif route == "flash":  # [B, S, H, hd] views of the packed columns, no copy
             q, k, v = (t.reshape(b, s, self.heads, d // self.heads)
                        for t in qkv.split(d, dim=-1))
             out = flash_attention(q, k, v, causal=causal)

@@ -24,7 +24,8 @@ routes to). The backward sends each ``g[b, n]`` to that one token, with
   :func:`codebook_pool_bwd_dsd` are the kernel wrappers: a CPU tensor takes
   the plain version, a CUDA tensor launches ``csrc/codebook_pool_fwd.cu`` or
   ``csrc/codebook_pool_bwd.cu`` or raises. Each counts its kernel launches
-  in ``.launches``.
+  in ``.launches``. The kernels take any T; D is a multiple of 64, at most
+  ``MAX_DEPTH``.
 - :class:`PooledCodebookLogits` is the ``autograd.Function`` over them (the
   JAX custom VJP of ``pooled_codebook_logits``); torch's own ``amax``
   backward would split the gradient among ties, which is not the routing
@@ -44,9 +45,8 @@ import torch
 from . import _build
 from ..models.sparsemax import sparsemax_bisect
 
-MAX_TOKENS = 128
-DEPTH_STEP = 64  # the kernel stages D in steps of 64
-MAX_DEPTH_BWD = 1024  # the dsd kernel holds D / 32 fp32 sums per lane
+DEPTH_STEP = 64  # the forward kernel stages D in steps of 64
+MAX_DEPTH = 1024  # the forward keeps a [codes, D] tile resident (128 KB); dsd D / 32 sums a lane
 
 
 def codebook_pool_fwd_reference(q: torch.Tensor, sd: torch.Tensor,
@@ -82,11 +82,12 @@ def _check_cuda_args(q, sd, keep, name="codebook_pool_fwd"):
         if x.dtype != torch.bfloat16 or not x.is_contiguous() or x.device != q.device:
             raise ValueError(f"{name}: {arg} must be contiguous bfloat16 "
                              f"on {q.device}, got {x.dtype} on {x.device}")
+    if q.data_ptr() % 16 or sd.data_ptr() % 16:
+        raise ValueError(f"{name}: q and sd must start on a 16-byte boundary")
     b, t, d = q.shape
-    if not 1 <= t <= MAX_TOKENS or d % DEPTH_STEP or d == 0 or not 1 <= b <= 65535:
-        raise ValueError(f"{name}: needs 1 <= T <= {MAX_TOKENS}, D a "
-                         f"multiple of {DEPTH_STEP} and 1 <= B <= 65535, "
-                         f"got B={b} T={t} D={d}")
+    if t < 1 or d % DEPTH_STEP or not 0 < d <= MAX_DEPTH or not 1 <= b <= 65535:
+        raise ValueError(f"{name}: needs T >= 1, D a multiple of {DEPTH_STEP} with "
+                         f"D <= {MAX_DEPTH}, and 1 <= B <= 65535, got B={b} T={t} D={d}")
     if keep is not None and (keep.shape != (b, t) or keep.dtype != torch.float32
                              or keep.device != q.device or not keep.is_contiguous()):
         raise ValueError(f"{name}: keep must be a contiguous [{b}, {t}] "
@@ -95,11 +96,7 @@ def _check_cuda_args(q, sd, keep, name="codebook_pool_fwd"):
 
 def _check_bwd_args(q, sd, keep, amax, g, name):
     _check_cuda_args(q, sd, keep, name)
-    b, n, d = q.shape[0], sd.shape[0], q.shape[-1]
-    if d > MAX_DEPTH_BWD:
-        raise ValueError(f"{name}: needs D <= {MAX_DEPTH_BWD}, got D={d}")
-    if q.data_ptr() % 16 or sd.data_ptr() % 16:
-        raise ValueError(f"{name}: q and sd must start on a 16-byte boundary")
+    b, n = q.shape[0], sd.shape[0]
     for arg, x, dtype in (("amax", amax, torch.int32), ("g", g, torch.float32)):
         if (x.shape != (b, n) or x.dtype != dtype or x.device != q.device
                 or not x.is_contiguous()):
@@ -176,15 +173,18 @@ def codebook_pool_bwd_reference(q, sd, keep, temperature, amax, g):
 _BWD_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                  ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
+# dq takes an int32 scratch (after the output) for its sorted routing
+_DQ_ARGTYPES = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) + _BWD_ARGTYPES[6:]
 
 
-def _launch_bwd(entry, out, q, sd, keep, temperature, amax, g):
+def _launch_bwd(entry, out, q, sd, keep, temperature, amax, g, scratch=()):
     _check_bwd_args(q, sd, keep, amax, g, entry)
     b, t, d = q.shape
     with torch.cuda.device(q.device):
-        fn = _build.kernel(entry, _BWD_ARGTYPES)
+        fn = _build.kernel(entry, _DQ_ARGTYPES if scratch else _BWD_ARGTYPES)
         status = fn(q.data_ptr(), sd.data_ptr(), None if keep is None else keep.data_ptr(),
-                    amax.data_ptr(), g.data_ptr(), out.data_ptr(), b, t, d, sd.shape[0],
+                    amax.data_ptr(), g.data_ptr(), out.data_ptr(),
+                    *(x.data_ptr() for x in scratch), b, t, d, sd.shape[0],
                     pool_coeff(d, temperature), torch.cuda.current_stream().cuda_stream)
     _build.check(status, entry)
     return out
@@ -192,13 +192,19 @@ def _launch_bwd(entry, out, q, sd, keep, temperature, amax, g):
 
 def codebook_pool_bwd_dq(q, sd, keep, temperature, amax, g):
     """``dq [B, T, D]`` in q's dtype; g is the fp32 ``[B, N]`` gradient of
-    ``pooled`` and amax the forward's argmax."""
+    ``pooled`` and amax the forward's argmax. On the card: a route kernel
+    sorts each row's codes by amax into an int32 scratch (per row, 2N + T + 1
+    values, each part rounded up to 16 bytes), then a gather kernel sums each
+    token's run."""
     if q.device.type == "cpu":
         return codebook_pool_bwd_dq_reference(q, sd, keep, temperature, amax, g)
     if q.device.type != "cuda":
         raise ValueError(f"codebook_pool_bwd_dq: unsupported device {q.device}")
+    b, t, _ = q.shape
+    n2, t4 = (sd.shape[0] + 1) // 2 * 2, (t + 4) // 4 * 4
+    scratch = torch.empty((b * (2 * n2 + t4),), dtype=torch.int32, device=q.device)
     out = _launch_bwd("codebook_pool_bwd_dq", torch.empty_like(q), q, sd, keep,
-                      temperature, amax, g)
+                      temperature, amax, g, (scratch,))
     codebook_pool_bwd_dq.launches += 1
     return out
 

@@ -13,6 +13,8 @@ shapes.
 import pytest
 import torch
 
+from iterated_learning_for_vlm_tpu_torch.models import fdt as fdt_model
+from iterated_learning_for_vlm_tpu_torch.models import layers as layers_model
 from iterated_learning_for_vlm_tpu_torch.models import model_entry
 from iterated_learning_for_vlm_tpu_torch.ops import codebook_attention as cb
 from iterated_learning_for_vlm_tpu_torch.ops import flash_attention as fl
@@ -328,6 +330,62 @@ def test_codebook_pool_bwd_kernels_match_plain(dev, b, t, d, n, with_keep, temp)
         assert torch.all(dq[keep == 0] == 0)
 
 
+# T from 1 to 1024 across the 16-row tiles and the forward's 64-row steps
+# (a sample inside one step, across two, over many), ragged N (4000 codes:
+# a partial last code tile), with and without pads; B = 64 gives each
+# forward block 16 samples, 8 a row group
+K1_TOKENS = [1, 15, 16, 17, 49, 64, 77, 128, 129, 144, 196, 200, 512, 1024]
+
+
+@pytest.mark.parametrize("t", K1_TOKENS)
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_codebook_pool_kernels_any_t(dev, t, with_keep):
+    """K1-fwd, K1-bwd dq and dsd against their plain versions at any T, the
+    backward from the forward kernel's amax."""
+    b, d, n = 64, 128, 4000
+    q, sd, keep = _pool_case(dev, b, t, d, n, with_keep, seed=t + 7)
+    _, amax = _check_pool(q, sd, keep, 0.7)
+    gp = torch.randn(b, n, generator=_gen(t), device=dev)
+    args = (q, sd, keep, 0.7, amax, gp)
+    ref_dq, ref_dsd = cb.codebook_pool_bwd_reference(*args)
+    for name, got, ref in (("dq", cb.codebook_pool_bwd_dq(*args), ref_dq),
+                           ("dsd", cb.codebook_pool_bwd_dsd(*args), ref_dsd)):
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        assert torch.all(err <= POOL_BWD_ATOL + POOL_BWD_RTOL * ref.float().abs()), (
+            name, err.max().item())
+        if keep is not None and name != "dsd":
+            assert torch.all(got[keep == 0] == 0), name
+
+
+@pytest.mark.parametrize("b,t,d,n", [(6, 49, 1024, 500), (3, 196, 1024, 4096), (70, 3, 64, 96),
+                                     (3, 5, 64, 9000)])
+def test_codebook_pool_kernels_depth_edges(dev, b, t, d, n):
+    """D = 1024 (the forward's 64-code tiles), D = 64 (one depth chunk), and
+    N = 9000, too many codes for dq's resident codebook slice (read in place)."""
+    q, sd, keep = _pool_case(dev, b, t, d, n, True, seed=d + t)
+    _, amax = _check_pool(q, sd, keep, 1.3)
+    gp = torch.randn(b, n, generator=_gen(d), device=dev)
+    args = (q, sd, keep, 1.3, amax, gp)
+    for got, ref in zip(cb.codebook_pool_bwd(*args), cb.codebook_pool_bwd_reference(*args)):
+        err = (got.float() - ref.float()).abs()
+        assert torch.all(err <= POOL_BWD_ATOL + POOL_BWD_RTOL * ref.float().abs()), err.max().item()
+
+
+@pytest.mark.parametrize("t", [49, 196])
+def test_codebook_pool_kernels_repeat_bit_for_bit(dev, t):
+    """K1-fwd (pooled and amax) and K1-bwd dq at B = 256, D = 512, N = 4096:
+    every output element has one owner reducing in a fixed order (dq's
+    routing sorted without atomics), so two calls agree bit for bit."""
+    q, sd, keep = _pool_case(dev, 256, t, 512, 4096, False, seed=t + 11)
+    first = cb.codebook_pool_fwd(q, sd, keep, 1.0)
+    second = cb.codebook_pool_fwd(q, sd, keep, 1.0)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    gp = torch.randn(256, 4096, generator=_gen(t + 1), device=dev)
+    args = (q, sd, keep, 1.0, first[1], gp)
+    assert torch.equal(cb.codebook_pool_bwd_dq(*args), cb.codebook_pool_bwd_dq(*args))
+
+
 def test_wrappers_raise_on_unsupported_cuda_inputs(dev):
     with pytest.raises(ValueError, match="causal=True"):
         fa.fused_tiny_attention(torch.zeros(1, 4, 3 * 64, dtype=torch.bfloat16, device=dev),
@@ -366,6 +424,9 @@ def test_wrappers_raise_on_unsupported_cuda_inputs(dev):
         cb.codebook_pool_bwd_dsd(torch.zeros(2, 4, 1088, dtype=bf, device=dev),
                                  torch.zeros(8, 1088, dtype=bf, device=dev), None, 1.0,
                                  amax, gp)
+    with pytest.raises(ValueError, match="D <="):
+        cb.codebook_pool_fwd(torch.zeros(2, 4, 1088, dtype=bf, device=dev),
+                             torch.zeros(8, 1088, dtype=bf, device=dev), None, 1.0)
 
 
 def _small_cfg(fused):
@@ -538,3 +599,111 @@ def test_clip_flash_route_launch_counts(dev):
             enc.encode_texts_tokens(tok, p)
 
     assert launches(serve) == [0, 0, 0, 0, 0, 36, 0]
+
+
+def _grads_of(model, batch):
+    from iterated_learning_for_vlm_tpu_torch.train.loss import clip_info_nce
+
+    out = model(*batch)
+    loss, _ = clip_info_nce(out["image_embed"], out["text_embed"], out["logit_scale"])
+    loss.backward()
+    return out, {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
+
+
+def _assert_paths_agree(a, b, min_cos=0.999, min_grad_cos=0.99):
+    """Embeddings at cosine >= 0.999, every gradient at cosine >= 0.99 (the
+    small-model bounds above), no gradient on one path only."""
+    (out_a, grads_a), (out_b, grads_b) = a, b
+    for key in ("image_embed", "text_embed"):
+        cos = (out_a[key] * out_b[key]).sum(-1)
+        assert torch.all(cos >= min_cos), (key, cos.min().item())
+    for name, ga in grads_a.items():
+        gb = grads_b[name]
+        assert (ga is None) == (gb is None), name
+        if ga is not None:
+            cos = torch.nn.functional.cosine_similarity(ga.flatten().float(),
+                                                        gb.flatten().float(), dim=0).item()
+            assert cos >= min_grad_cos, (name, cos)
+
+
+COUNTED = (fa.tiny_attention_fwd, fa.tiny_attention_bwd, cb.codebook_pool_fwd,
+           cb.codebook_pool_bwd_dq, cb.codebook_pool_bwd_dsd, fl.flash_attention_fwd,
+           fl.flash_attention_bwd)
+
+
+def _counts():
+    return ([c.launches for c in COUNTED], layers_model.attention_route.plain_routes,
+            fdt_model.codebook_route.plain_routes)
+
+
+def _deltas(before):
+    after = _counts()
+    return ([a - b for a, b in zip(after[0], before[0])], after[1] - before[1],
+            after[2] - before[2])
+
+
+def test_fdt_long_t_takes_the_codebook_kernels(dev):
+    """A small bf16 CLIP-FDT at 96 px, patch 8: T = 144 image tokens, past
+    the old 128 cap. Forward and backward run K1 (fwd, dq and dsd once a
+    tower) and match the plain branch from the same weights."""
+    def cfg(fused):
+        c = _small_cfg(fused)
+        c["kwargs"]["image_encode"].update(input_resolution=96, patch_size=8)
+        c["kwargs"]["fused_attn"] = False
+        return c
+
+    fast = model_entry(cfg(True), device=dev, generator=_gen(0))
+    plain = model_entry(cfg(False), device=dev, generator=_gen(1))
+    plain.load_state_dict(fast.state_dict())
+    _, _, (_, tokens, pad) = _small_pair(dev)
+    images = torch.randn(5, 96, 96, 3, generator=_gen(3), device=dev)
+    before = _counts()
+    got = _grads_of(fast, (images, tokens, pad))
+    torch.cuda.synchronize()
+    assert _deltas(before) == ([0, 0, 2, 2, 2, 0, 0], 0, 0)
+    _assert_paths_agree(got, _grads_of(plain, (images, tokens, pad)))
+
+
+def test_fdt_fp32_knobs_route_to_plain(dev):
+    """An fp32 CLIP-FDT with ``fused_attn`` and ``use_fused_kernel``: the
+    kernels take bf16 only, so every call routes to the plain path (counted:
+    4 attention calls and 2 codebook calls a forward), launches nothing, and
+    matches the same weights with both knobs off."""
+    def cfg(fused):
+        c = _small_cfg(fused)
+        c["kwargs"]["dtype"] = "float32"
+        return c
+
+    fast = model_entry(cfg(True), device=dev, generator=_gen(0))
+    plain = model_entry(cfg(False), device=dev, generator=_gen(1))
+    plain.load_state_dict(fast.state_dict())
+    _, _, batch = _small_pair(dev)
+    before = _counts()
+    got = _grads_of(fast, batch)
+    torch.cuda.synchronize()
+    assert _deltas(before) == ([0] * 7, 4, 2)
+    _assert_paths_agree(got, _grads_of(plain, batch))
+
+
+def test_clip_head_width_32_flash_knob_routes_to_plain(dev):
+    """A bf16 CLIP with head width 32 (width 128, 4 heads) under
+    ``use_flash``: K3 takes head width 64 only, so each of the 4 attention
+    calls a forward takes the plain path (counted), nothing launches, and it
+    matches the plain route from the same weights."""
+    def cfg(flash):
+        return {"type": "clip_vitb32", "kwargs": {
+            "image_encode": {"input_resolution": 64, "patch_size": 16, "width": 128,
+                             "layers": 2, "heads": 4, "embed_dim": 64},
+            "text_encode": {"context_length": 20, "vocab_size": 300, "width": 128,
+                            "heads": 4, "layers": 2, "embed_dim": 64},
+            "use_flash": flash, "dtype": "bfloat16"}}
+
+    fast = model_entry(cfg(True), device=dev, generator=_gen(0))
+    plain = model_entry(cfg(False), device=dev, generator=_gen(1))
+    plain.load_state_dict(fast.state_dict())
+    _, _, batch = _small_pair(dev)
+    before = _counts()
+    got = _grads_of(fast, batch)
+    torch.cuda.synchronize()
+    assert _deltas(before) == ([0] * 7, 4, 0)
+    _assert_paths_agree(got, _grads_of(plain, batch))

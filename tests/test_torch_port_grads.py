@@ -116,6 +116,58 @@ def test_pooled_bwd_reference_matches_jax(with_keep, n, nn, negative_row):
         assert np.all(np.asarray(amax)[0] == 2)
 
 
+@pytest.mark.parametrize("t,with_keep", [(144, True), (196, False)])
+def test_pooled_bwd_reference_matches_jax_long_t(t, with_keep):
+    """T past 128 (a 384-px ViT-B/32, the B/16 tower): the plain dq and dsd
+    against the JAX kernels from JAX's amax."""
+    q, sd, keep, g = _pool_inputs(50 + t, t=t, with_keep=with_keep)
+    jkeep = None if keep is None else jnp.asarray(keep)
+    _, amax = jcb._pooled_fwd(jnp.asarray(q), jnp.asarray(sd), jkeep, 0.7, bb=2, nn=64)
+    want_dq, want_dsd = jcb._pooled_bwd(jnp.asarray(q), jnp.asarray(sd), jkeep, 0.7, amax,
+                                        jnp.asarray(g), bb=2, nn=64)
+    args = (_t(q), _t(sd), None if keep is None else _t(keep), 0.7,
+            torch.from_numpy(np.array(amax)), _t(g))
+    got_dq, got_dsd = tcb.codebook_pool_bwd_reference(*args)
+    np.testing.assert_allclose(got_dq.numpy(), np.asarray(want_dq), atol=ATOL)
+    np.testing.assert_allclose(got_dsd.numpy(), np.asarray(want_dsd), atol=ATOL)
+    if keep is not None:
+        assert np.all(got_dq.numpy()[keep == 0] == 0)
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """fp32 -> bf16 (round to nearest even), kept in fp32."""
+    u = x.astype(np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+@pytest.mark.parametrize("t,with_keep", [(49, False), (32, True)])
+def test_dq_two_term_model_within_tolerance(t, with_keep):
+    """A numpy model of dq as the TPU kernel's dense one-hot product on the
+    tensor cores (the design the shipped gather was measured against): the
+    routed weight w = g c keep enters as bf16 hi + bf16 lo, each product
+    summed in fp32, the sum rounded to bf16. At the main path's D = 512,
+    N = 4096 it stays within chip_smoke.py's POOL_BWD tolerance of the plain
+    version (fp32 w, fp32 sums, bf16 out)."""
+    rng = np.random.default_rng(t)
+    b, d, n = 4, 512, 4096
+    sd = _bf16(rng.standard_normal((n, d)).astype(np.float32))
+    amax = rng.integers(0, t, (b, n))
+    g = rng.standard_normal((b, n)).astype(np.float32)
+    keep = np.ones((b, t), np.float32)
+    if with_keep:
+        keep[:, t // 2:] = 0.0
+    c = np.float32(tcb.pool_coeff(d, 1.0))
+    w = (g * c) * np.take_along_axis(keep, amax, axis=1)
+    m = np.where(np.arange(t)[None, :, None] == amax[:, None, :], w[:, None, :], np.float32(0))
+    hi = _bf16(m)
+    lo = _bf16(m - hi)
+    model = _bf16(np.matmul(hi, sd) + np.matmul(lo, sd))
+    ref = _bf16(np.matmul(m, sd))
+    err = np.abs(model - ref)
+    assert np.all(err <= 1e-4 + 8e-3 * np.abs(ref)), err.max()
+
+
 @pytest.mark.parametrize("with_keep,n,negative_row", [
     (True, 96, False), (False, 96, False), (True, 100, False), (True, 96, True),
 ])

@@ -26,6 +26,7 @@ from iterated_learning_for_vlm_tpu.models.sparsemax import sparsemax as j_sparse
 from iterated_learning_for_vlm_tpu.models.sparsemax import sparsemax_bisect as j_bisect
 from iterated_learning_for_vlm_tpu.ops import codebook_attention as jcb
 from iterated_learning_for_vlm_tpu.ops import fused_attention as jfa
+from iterated_learning_for_vlm_tpu_torch.models import fdt as tfdt
 from iterated_learning_for_vlm_tpu_torch.models import layers as tl
 from iterated_learning_for_vlm_tpu_torch.models.sparsemax import sparsemax, sparsemax_bisect
 from iterated_learning_for_vlm_tpu_torch.ops import codebook_attention as tcb
@@ -170,6 +171,54 @@ def test_multihead_attention_flash_route(seq, causal, fused):
                                np.asarray(want), atol=ATOL)
 
 
+# flash, fused, s, head width, dtype, device -> route; every case on a CUDA
+# device unless it says "cpu", where the kernels' plain versions take anything
+ROUTE_CASES = [
+    (False, True, 50, 64, torch.bfloat16, "cuda", "fused"),
+    (True, False, 197, 64, torch.bfloat16, "cuda", "flash"),
+    (True, True, 1024, 64, torch.bfloat16, "cuda", "flash"),
+    (False, True, 50, 64, torch.float32, "cuda", "plain"),
+    (False, True, 50, 32, torch.bfloat16, "cuda", "plain"),
+    (False, True, 50, 48, torch.bfloat16, "cuda", "plain"),
+    (False, True, 129, 64, torch.bfloat16, "cuda", "plain"),
+    (True, False, 50, 64, torch.float32, "cuda", "plain"),
+    (True, False, 50, 32, torch.bfloat16, "cuda", "plain"),
+    (True, False, 1025, 64, torch.bfloat16, "cuda", "plain"),
+    (False, True, 50, 32, torch.float32, "cpu", "fused"),
+    (True, False, 1025, 48, torch.float32, "cpu", "flash"),
+    (False, True, 129, 64, torch.float32, "cpu", "plain"),
+    (False, False, 50, 64, torch.bfloat16, "cuda", "plain"),
+]
+
+
+@pytest.mark.parametrize("flash,fused,s,hd,dtype,device,route", ROUTE_CASES)
+def test_attention_route(flash, fused, s, hd, dtype, device, route):
+    """The route is decided from the input, before any launch: a kernel only
+    where it can take the input (the JAX S <= 128 rule for K2 everywhere);
+    every knob that asked for a kernel and got the plain path is counted."""
+    before = tl.attention_route.plain_routes
+    assert tl.attention_route(flash, fused, s, hd, dtype, torch.device(device)) == route
+    asked = flash or fused
+    assert tl.attention_route.plain_routes - before == int(asked and route == "plain")
+
+
+@pytest.mark.parametrize("dtype,sd_dim,device,takes", [
+    (torch.bfloat16, 512, "meta", True), (torch.bfloat16, 1024, "meta", True),
+    (torch.bfloat16, 64, "meta", True), (torch.float32, 512, "meta", False),
+    (torch.bfloat16, 96, "meta", False), (torch.bfloat16, 1088, "meta", False),
+    (torch.float32, 96, "cpu", True),
+])
+def test_codebook_route(dtype, sd_dim, device, takes):
+    """K1 takes bf16 q with ``sd_dim`` a multiple of 64 and at most 1024, at
+    any T (here 196, the ViT-B/16 patch count); a device tensor (``meta``
+    stands in for CUDA here) it cannot take routes to the plain branch and is
+    counted; a CPU tensor takes the plain versions."""
+    q = torch.empty(2, 196, sd_dim, dtype=dtype, device=device)
+    before = tfdt.codebook_route.plain_routes
+    assert tfdt.codebook_route(q, sd_dim) is takes
+    assert tfdt.codebook_route.plain_routes - before == int(not takes)
+
+
 # -- sparsemax -------------------------------------------------------------
 @pytest.mark.parametrize("scale", [0.3, 3.0])
 def test_sparsemax_sort_and_bisect(scale):
@@ -309,6 +358,17 @@ def test_pooled_all_negative_row_pads_decide_amax():
     _assert_amax(got_a.numpy(), want_a, q, sd, keep, 2.0)
 
 
+@pytest.mark.parametrize("t,with_keep,temp", [(144, True, 0.5), (196, False, 2.0)])
+def test_pooled_codebook_logits_matches_jax_long_t(t, with_keep, temp):
+    """T past 128: a 384-px ViT-B/32 (144 patches) and the B/16 tower (196);
+    the JAX kernel's block holds the whole T, the port's plain version too."""
+    q, sd, keep = _pool_inputs(40 + t, t=t, with_keep=with_keep)
+    want_p, want_a = _jax_pool(q, sd, keep, temp, nn=64)
+    got_p, got_a = tcb.codebook_pool_fwd(_t(q), _t(sd), None if keep is None else _t(keep), temp)
+    np.testing.assert_allclose(got_p.numpy(), want_p, atol=ATOL)
+    _assert_amax(got_a.numpy(), want_a, q, sd, keep, temp)
+
+
 @pytest.mark.parametrize("with_keep", [True, False])
 def test_fused_codebook_attention_matches_jax(with_keep):
     q, sd, keep = _pool_inputs(12, with_keep=with_keep)
@@ -324,7 +384,7 @@ def test_fused_codebook_attention_matches_jax(with_keep):
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(dtype=torch.float32), "bfloat16"),
-    (dict(t=129), "T <="),
+    (dict(d=1088), "D <= 1024"),
     (dict(d=48), "multiple of 64"),
     (dict(keep_dtype=torch.bool), "keep"),
 ])
@@ -335,6 +395,16 @@ def test_codebook_kernel_argument_checks(kwargs, match):
     keep = torch.ones(b, t, dtype=kwargs["keep_dtype"]) if "keep_dtype" in kwargs else None
     with pytest.raises(ValueError, match=match):
         tcb._check_cuda_args(q, sd, keep)
+
+
+@pytest.mark.parametrize("t", [1, 129, 196, 1024, 4096])
+def test_codebook_kernel_accepts_any_t(t):
+    """The K1 kernels take any T (the forward walks T in 64-row steps with a
+    running max; dq's route and gather kernels keep no T-sized state on chip)."""
+    q, sd = torch.zeros(2, t, 64, dtype=torch.bfloat16), torch.zeros(32, 64, dtype=torch.bfloat16)
+    tcb._check_cuda_args(q, sd, torch.ones(2, t))
+    tcb._check_bwd_args(q, sd, None, torch.zeros(2, 32, dtype=torch.int32), torch.zeros(2, 32),
+                        "codebook_pool_bwd_dq")
 
 
 _JAX_ROOTS = ("jax", "flax", "iterated_learning_for_vlm_tpu")
