@@ -21,9 +21,11 @@ and depth, bf16, both kernels on, random weights from seed 0),
    its bytes over 3.35 TB/s and its bf16 operations over 989 TFLOP/s) and,
    for attention, the time of ``torch.nn.functional.scaled_dot_product_attention``
    on the same inputs (a yardstick only: no module of the port calls it);
+   K2 also at S=77 with the causal mask passed as the ``[S, S]`` bias tensor
+   (the JAX entry point's form; SDPA then takes it as ``attn_mask``);
 3b. backward kernels: K2-bwd (dqkv and dbias3 through autograd of
-   ``fused_tiny_attention``) and K1-bwd dq / dsd (fed the forward kernel's
-   amax on both sides) the same way;
+   ``fused_tiny_attention``, the S=77 bias case too) and K1-bwd dq / dsd
+   (fed the forward kernel's amax on both sides) the same way;
 3c. flash attention: K3-fwd (with its lse, which the serving call leaves
    out), K3-bwd through autograd of ``flash_attention`` (from the saved lse)
    and the two together (beside SDPA's forward + backward), against their
@@ -256,21 +258,24 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def sdpa_fwd(q, k, v, causal):
+def sdpa_fwd(q, k, v, causal, mask=None):
     """``scaled_dot_product_attention`` on the [B, H, S, 64] views of q, k, v
-    ([B, S, H, 64])."""
+    ([B, S, H, 64]); with ``mask``, an [S, S] additive ``attn_mask`` in q's
+    dtype in place of ``is_causal``."""
     heads = [t.transpose(1, 2) for t in (q, k, v)]
-    return lambda: torch.nn.functional.scaled_dot_product_attention(*heads, is_causal=causal)
+    kw = {"is_causal": causal} if mask is None else {"attn_mask": mask.to(q.dtype)}
+    return lambda: torch.nn.functional.scaled_dot_product_attention(*heads, **kw)
 
 
-def sdpa_fwd_bwd(q, k, v, causal, dout):
+def sdpa_fwd_bwd(q, k, v, causal, dout, mask=None):
     """The same forward and its backward through autograd, for the output
     gradient ``dout`` ([B, S, H, 64])."""
     leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
     grad = dout.transpose(1, 2)
+    kw = {"is_causal": causal} if mask is None else {"attn_mask": mask.to(q.dtype)}
 
     def call():
-        out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=causal)
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves, **kw)
         return torch.autograd.grad(out, leaves, grad)
 
     return call
@@ -293,7 +298,10 @@ def timing_text(row) -> str:
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
-def attention_case(dev, name, b, s, h, causal):
+def attention_case(dev, name, b, s, h, causal, route="flag"):
+    """K2-fwd against its plain version; a causal case takes the flag
+    (``route`` "flag", the towers' route) or the causal mask as the [S, S]
+    bias tensor ("bias", the JAX entry point's form)."""
     from iterated_learning_for_vlm_tpu_torch.ops import fused_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(s)
@@ -301,21 +309,22 @@ def attention_case(dev, name, b, s, h, causal):
     qkv = torch.randn(b, s, 3 * d, generator=g, device=dev).to(torch.bfloat16)
     bias3 = (0.3 * torch.randn(3 * d, generator=g, device=dev)).to(torch.bfloat16)
     mask = fa.causal_bias(s, dev) if causal else None
-    got = fa.tiny_attention_fwd(qkv, h, causal=causal, qkv_bias=bias3)
+    bias = mask if route == "bias" else None
+    flag = causal and route == "flag"
+    got = fa.tiny_attention_fwd(qkv, h, causal=flag, qkv_bias=bias3, bias=bias)
     ref = fa.attention_reference(qkv + bias3, h, mask)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs()
     ok = bool(torch.all(err <= ATTN_ATOL + ATTN_RTOL * ref.float().abs()))
-    d = 64 * h
     x = qkv + bias3  # the yardstick gets the bias added beforehand
-    lib_fwd = sdpa_fwd(*(t.reshape(b, s, h, 64) for t in x.split(d, dim=-1)), causal)
-    row = {"case": name, "max_abs_err": err.max().item(), "atol": ATTN_ATOL,
+    lib_fwd = sdpa_fwd(*(t.reshape(b, s, h, 64) for t in x.split(d, dim=-1)), causal, bias)
+    row = {"case": name, "route": route, "max_abs_err": err.max().item(), "atol": ATTN_ATOL,
            "rtol": ATTN_RTOL, "within_tol": ok}
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes(qkv, bias3, got),
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes(qkv, bias3, bias, got),
                                                 attention_ops(b, s, h, causal, 2))
     del ref, got
     timed_row(row, lambda: fa.attention_reference(qkv + bias3, h, mask),
-              lambda: fa.tiny_attention_fwd(qkv, h, causal, bias3), lib_fwd)
+              lambda: fa.tiny_attention_fwd(qkv, h, flag, bias3, bias), lib_fwd)
     log(f"kernel tiny_attention_fwd {name}: max_abs_err={row['max_abs_err']:.3e} "
         f"(tol {ATTN_ATOL} + {ATTN_RTOL}*|ref|) ok={ok} {timing_text(row)}")
     check(ok, f"tiny_attention_fwd {name} disagrees with attention_reference")
@@ -361,7 +370,9 @@ def pool_case(dev, name, b, t, with_keep):
 
 
 # -- phase 3b: backward kernels against their plain versions -----------------
-def attention_bwd_case(dev, name, b, s, h, causal):
+def attention_bwd_case(dev, name, b, s, h, causal, route="flag"):
+    """K2-bwd through autograd of ``fused_tiny_attention`` against its plain
+    version; ``route`` as in :func:`attention_case`."""
     from iterated_learning_for_vlm_tpu_torch.ops import fused_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(s + 1000)
@@ -369,10 +380,12 @@ def attention_bwd_case(dev, name, b, s, h, causal):
     qkv = torch.randn(b, s, 3 * d, generator=g, device=dev).to(torch.bfloat16)
     bias3 = (0.3 * torch.randn(3 * d, generator=g, device=dev)).to(torch.bfloat16)
     dout = torch.randn(b, s, d, generator=g, device=dev).to(torch.bfloat16)
+    bias = fa.causal_bias(s, dev) if causal and route == "bias" else None
+    flag = causal and route == "flag"
     qkv_k, bias_k = qkv.clone().requires_grad_(), bias3.clone().requires_grad_()
-    fa.fused_tiny_attention(qkv_k, h, qkv_bias=bias_k, causal=causal).backward(dout)
+    fa.fused_tiny_attention(qkv_k, h, bias, qkv_bias=bias_k, causal=flag).backward(dout)
     got, got_b = qkv_k.grad, bias_k.grad.float()
-    ref = fa.attention_bwd_reference(qkv, h, causal, bias3, dout)
+    ref = fa.attention_bwd_reference(qkv, h, flag, bias3, dout, bias)
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs()
     tol = ATTN_BWD_ATOL + ATTN_BWD_RTOL * ref.float().abs()
@@ -389,17 +402,18 @@ def attention_bwd_case(dev, name, b, s, h, causal):
     bias_ok = bool(torch.equal(got_b, own_b)) and bool(torch.all(bias_diff <= bias_tol_t))
     bias_tol = (f"equal to the sum of its own dqkv; vs plain: the summed dqkv tolerance + "
                 f"1 bf16 ulp (min {bias_tol_t.min().item():.3g})")
-    row = {"case": name, "max_abs_err": err.max().item(), "atol": ATTN_BWD_ATOL,
-           "rtol": ATTN_BWD_RTOL, "within_tol": ok, "share_differing_dq_dk_dv": differ,
-           "dbias3_max_abs_err": bias_err, "dbias3_tol": bias_tol, "dbias3_within_tol": bias_ok}
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes(qkv, bias3, dout, got),
+    row = {"case": name, "route": route, "max_abs_err": err.max().item(),
+           "atol": ATTN_BWD_ATOL, "rtol": ATTN_BWD_RTOL, "within_tol": ok,
+           "share_differing_dq_dk_dv": differ, "dbias3_max_abs_err": bias_err,
+           "dbias3_tol": bias_tol, "dbias3_within_tol": bias_ok}
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes(qkv, bias3, bias, dout, got),
                                                 attention_ops(b, s, h, causal, 5))
     del qkv_k, bias_k, got, ref, err, tol
     x = qkv + bias3
     lib_bwd = sdpa_fwd_bwd(*(t.reshape(b, s, h, 64) for t in x.split(d, dim=-1)), causal,
-                           dout.reshape(b, s, h, 64))
-    timed_row(row, lambda: fa.attention_bwd_reference(qkv, h, causal, bias3, dout),
-              lambda: fa.tiny_attention_bwd(qkv, h, causal, bias3, dout), lib_bwd)
+                           dout.reshape(b, s, h, 64), bias)
+    timed_row(row, lambda: fa.attention_bwd_reference(qkv, h, flag, bias3, dout, bias),
+              lambda: fa.tiny_attention_bwd(qkv, h, flag, bias3, dout, bias), lib_bwd)
     log(f"kernel tiny_attention_bwd {name} (autograd of fused_tiny_attention): dqkv "
         f"max_abs_err={row['max_abs_err']:.3e} (tol {ATTN_BWD_ATOL} + {ATTN_BWD_RTOL}*|ref|) "
         f"ok={ok}, share of elements differing dq/dk/dv "
@@ -887,7 +901,9 @@ def main() -> int:
     # 3. kernels against their plain versions, main-path shapes
     k2 = [attention_case(dev, f"vision B={BATCH} S=50 H=12", BATCH, 50, 12, False),
           attention_case(dev, f"text B={BATCH} S=77 H=8 causal", BATCH, 77, 8, True),
-          attention_case(dev, f"text B={BATCH} S=32 H=8 causal", BATCH, 32, 8, True)]
+          attention_case(dev, f"text B={BATCH} S=32 H=8 causal", BATCH, 32, 8, True),
+          attention_case(dev, f"text B={BATCH} S=77 H=8 causal as bias", BATCH, 77, 8, True,
+                         "bias")]
     k1 = [pool_case(dev, f"image B={BATCH} T=49", BATCH, 49, False),
           pool_case(dev, f"text B={BATCH} T=32 pads", BATCH, 32, True),
           pool_case(dev, f"text B={BATCH} T=77 pads", BATCH, 77, True),
@@ -897,7 +913,9 @@ def main() -> int:
     # 3b. backward kernels against their plain versions, main-path shapes
     k2b = [attention_bwd_case(dev, f"vision B={BATCH} S=50 H=12", BATCH, 50, 12, False),
            attention_bwd_case(dev, f"text B={BATCH} S=77 H=8 causal", BATCH, 77, 8, True),
-           attention_bwd_case(dev, f"text B={BATCH} S=32 H=8 causal", BATCH, 32, 8, True)]
+           attention_bwd_case(dev, f"text B={BATCH} S=32 H=8 causal", BATCH, 32, 8, True),
+           attention_bwd_case(dev, f"text B={BATCH} S=77 H=8 causal as bias", BATCH, 77, 8,
+                              True, "bias")]
     k1b = (pool_bwd_cases(dev, f"image B={BATCH} T=49", BATCH, 49, False)
            + pool_bwd_cases(dev, f"text B={BATCH} T=32 pads", BATCH, 32, True)
            + pool_bwd_cases(dev, f"text B={BATCH} T=77 pads", BATCH, 77, True)

@@ -33,12 +33,30 @@
 // - The TPU kernel's dense one-hot form (w as two bf16 terms on the tensor
 //   cores, 2 x 2 B T N D operations, T times the gather's work) was measured
 //   against this gather and lost at every main-path shape (PERF.md).
-// - dsd reads B * N gathered q rows of 1 KB, ~1.07 GB, and q itself is only
-//   12.8 MB (image T = 49) or 8.4 MB (text T = 32), so the rows come from the
-//   50 MB L2. One warp owns one code and walks b in order; its lanes fetch the
-//   routing of 32 batch rows at once and pass it round by shuffles, and each
-//   lane keeps its 8-column slices of the sum in registers, loaded 16 bytes at
-//   a time. L2 bandwidth bounds it.
+// - dsd gathers B * N rows of q, ~1.07 GB of bf16 at T = 49, from a q of only
+//   12.8 MB (image T = 49) or 8.4 MB (text T = 32). A route kernel first
+//   writes each (b, n)'s (token, weight) pair, w = g c keep[t], code tile by
+//   code tile. The gather gives a block a tile of 256 codes x 64 columns, one
+//   consumer thread a code with its 64 fp32 sums in registers, and walks the
+//   batch rows in order through a ring of stages in shared memory that one
+//   producer thread fills: a stage holds several batch rows' slices q[b, :,
+//   64 columns] (8 at T <= 32, 5 at T = 49) by one 2-D tensor copy (TMA) and
+//   their pairs by one bulk copy, with a full and an empty mbarrier, so no
+//   block-wide barrier stops the consumers. Every gathered row is read from
+//   shared memory, not L2, in an order that keeps a quarter-warp's eight
+//   16-byte reads in eight different bank groups whatever the tokens. L2
+//   serves each block its slices and pairs, (N / 256) |q| + (D / 64) |pairs|
+//   (~270 MB at T = 49). What bounds it (PERF.md): the copy
+//   operations a batch row needs, then the bf16 widening and multiply-adds
+//   (~0.04 ms of issue); the shared-memory floor of any such gather is
+//   1.07 GB at 128 bytes a clock on 132 SMs, ~0.035 ms. Copies issued by
+//   every thread, or one copy per 128-byte row, cost more than the whole
+//   first version of this kernel. Past T = 888 the ring does not fit and the
+//   rows are read in place from L2 (same kernel, another instance, chosen
+//   from T before the launch). Each output element is summed by one thread,
+//   b in order, fmaf(w, q, acc) from 0, as the first version of this kernel
+//   summed it, so both give the same bits.
+#include <cuda.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -314,105 +332,274 @@ codebook_pool_dq_gather_kernel(const __nv_bfloat16* __restrict__ sd,
 }
 
 // -- dsd ----------------------------------------------------------------------
-constexpr int kDsdWarps = 8;         // codes per dsd block, one per warp
-constexpr int kDsdChunk = 32 * kVec;  // columns a warp covers per load
-constexpr int kMaxChunks = 4;        // D <= 1024
-constexpr int kDsdUnroll = 4;
+constexpr int kDsdCodes = 256;  // codes of a block's tile, one consumer thread each
+constexpr int kDsdCols = 64;    // columns of its slice: 128-byte rows of bf16
+constexpr int kDsdConsumerWarps = kDsdCodes / 32;
+constexpr int kDsdThreads = kDsdCodes + 32;  // and one producer warp
+constexpr int kDsdSlots = kDsdCols / kVec;   // 16-byte chunks a thread sums
+constexpr int kDsdRowBytes = kDsdCols * 2;
+constexpr int kDsdPairBytes = kDsdCodes * sizeof(int2);  // a tile's (token, weight) pairs
+constexpr int kDsdMaxBox = 256;  // rows of one tensor copy (the copy engine's bound)
+constexpr int kDsdMaxRows = 8;   // batch rows a stage holds
+constexpr size_t kDsdSmemBytes = 227 * 1024;
 
-// The routing weight of (b, n): t = amax, w = g * c * keep[t], or t = -1 when
-// amax is out of range (it never is for an amax the forward wrote).
-__device__ __forceinline__ void route(const int* __restrict__ amax, const float* __restrict__ g,
-                                      const float* __restrict__ keep_b, size_t idx, int tokens,
-                                      float coeff, int& t, float& w) {
-  t = amax[idx];
-  w = 0.f;
-  if (t < 0 || t >= tokens) {
-    t = -1;
-    return;
+// The (token, weight) pair of every (b, n), code tile by code tile:
+// pairs[(n / 256) B + b][n % 256], so a tile's pairs of consecutive batch
+// rows are contiguous. t = amax[b, n] and w = g c keep[b, t], w formed in the
+// order the first version of dsd formed it; (0, 0) for a code past N or a
+// token out of range (an amax the forward never writes).
+__global__ void codebook_pool_dsd_route_kernel(const float* __restrict__ keep,
+                                               const int* __restrict__ amax,
+                                               const float* __restrict__ g,
+                                               int2* __restrict__ pairs, int batch, int tokens,
+                                               int codes, float coeff, long long count) {
+  const long long i = blockIdx.x * 256ll + threadIdx.x;
+  if (i >= count) return;
+  const long long tile_b = i / kDsdCodes;
+  const int b = int(tile_b % batch);
+  const int n = int(tile_b / batch) * kDsdCodes + int(i % kDsdCodes);
+  int tok = 0;
+  float w = 0.f;
+  if (n < codes) {
+    const size_t j = size_t(b) * codes + n;
+    const int t = amax[j];
+    if (t >= 0 && t < tokens) {
+      tok = t;
+      w = g[j] * coeff;
+      if (keep != nullptr) w = w * keep[size_t(b) * tokens + t];
+    }
   }
-  w = g[idx] * coeff;
-  if (keep_b != nullptr) w = w * keep_b[t];
+  pairs[i] = make_int2(tok, __float_as_int(w));
 }
 
-__global__ void __launch_bounds__(kDsdWarps * 32)
-codebook_pool_bwd_dsd_kernel(const __nv_bfloat16* __restrict__ q,
-                             const float* __restrict__ keep, const int* __restrict__ amax,
-                             const float* __restrict__ g, __nv_bfloat16* __restrict__ dsd,
-                             int batch, int tokens, int depth, int codes, float coeff) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kDsdWarps + warp;
-  if (n >= codes) return;  // codes past N are never read
-  const int chunks = (depth + kDsdChunk - 1) / kDsdChunk;
+// How a stage holds the slices: `rows` batch rows (samples), brought by
+// `count` tensor copies of `box` rows each (count * box >= rows * T; rows
+// past the stage's samples are the next ones', or zeros past the tensor,
+// and are never read). Up to T = 32 a stage holds 8 batch rows in one copy,
+// 5 at T = 49, 3 at T = 77; past T = 256 one batch row in several copies.
+struct DsdStage {
+  int rows, box, count;
+};
 
-  float acc[kMaxChunks][kVec];
-#pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c)
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[c][e] = 0.f;
+__host__ __device__ inline DsdStage dsd_stage(int tokens) {
+  if (tokens <= kDsdMaxBox) {
+    const int rows = min(kDsdMaxRows, kDsdMaxBox / tokens);
+    return {rows, rows * tokens, 1};
+  }
+  const int count = (tokens + kDsdMaxBox - 1) / kDsdMaxBox;
+  return {1, (tokens + count - 1) / count, count};
+}
 
-  for (int b0 = 0; b0 < batch; b0 += 32) {
-    // lane l fetches the routing of batch row b0 + l
-    int t = -1;
-    float w = 0.f;
-    const int bl = b0 + lane;
-    if (bl < batch) {
-      route(amax, g, keep != nullptr ? keep + size_t(bl) * tokens : nullptr,
-            size_t(bl) * codes + n, tokens, coeff, t, w);
+// Bytes of one ring stage, 128-byte aligned: (staged) the slices as the
+// tensor copies land them, then the tile's pairs of the stage's batch rows.
+__host__ __device__ inline size_t dsd_stage_bytes(int tokens, bool staged) {
+  const DsdStage st = staged ? dsd_stage(tokens) : DsdStage{1, 0, 0};
+  const size_t q_bytes = size_t(st.box) * st.count * kDsdRowBytes;
+  return (q_bytes + size_t(st.rows) * kDsdPairBytes + 127) / 128 * 128;
+}
+
+// Shared memory of a ring of `stages`: the stages, then a full and an empty
+// barrier for each.
+__host__ __device__ inline size_t dsd_smem_bytes(int stages, int tokens, bool staged) {
+  return stages * dsd_stage_bytes(tokens, staged) + 2 * stages * sizeof(uint64_t);
+}
+
+// One 2-D tensor copy of a box of the tensor `map` at (column c, row r) into
+// shared memory, its bytes counted on `bar`.
+__device__ __forceinline__ void tensor_copy_g2s(void* smem, const CUtensorMap& map, int c, int r,
+                                                uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      ::"r"(smem_addr(smem)), "l"(reinterpret_cast<uint64_t>(&map)), "r"(smem_addr(bar)),
+      "r"(c), "r"(r)
+      : "memory");
+}
+
+// Block (code tile x, column slice y). One producer thread fills a ring of
+// kStages stages, stage i (batch rows i R .. i R + R - 1, R = dsd_stage().rows)
+// in place i % kStages: the slices by tensor copies of `q_map` (q as [B T, D]
+// rows, boxes of 64 columns; kStaged) and the tile's pairs of those rows by
+// one bulk copy; the stage's full barrier completes when all of it has
+// landed. Consumer thread i owns code n0 + i and the slice's 64 columns
+// (eight 16-byte chunks); its slot k holds the chunk (i + k) % 8, so at each
+// k a quarter-warp's eight lanes read eight different chunks (bank groups)
+// of their rows, whatever the tokens. Each consumer warp releases a stage on
+// its empty barrier once it is done with it. Without kStaged (T too large for
+// the ring) the rows are read in place.
+template <int kStages, bool kStaged>
+__global__ void __launch_bounds__(kDsdThreads, 1)
+codebook_pool_bwd_dsd_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __nv_bfloat16* __restrict__ q,
+                             const int2* __restrict__ pairs, __nv_bfloat16* __restrict__ dsd,
+                             int batch, int tokens, int depth, int codes) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int n0 = blockIdx.x * kDsdCodes;
+  const int c0 = blockIdx.y * kDsdCols;
+  const DsdStage geo = kStaged ? dsd_stage(tokens) : DsdStage{1, 0, 0};
+  const int stages = (batch + geo.rows - 1) / geo.rows;
+  const size_t stage_bytes = dsd_stage_bytes(tokens, kStaged);
+  const size_t q_bytes = size_t(geo.box) * geo.count * kDsdRowBytes;
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem + kStages * stage_bytes);
+  uint64_t* const empty = full + kStages;
+  auto stage = [&](int i) { return smem + (i % kStages) * stage_bytes; };
+  auto q_s = [&](unsigned char* st) { return reinterpret_cast<__nv_bfloat16*>(st); };
+  auto pairs_s = [&](unsigned char* st) { return reinterpret_cast<int2*>(st + q_bytes); };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);  // the producer's expect_tx
+      mbar_init(&empty[s], kDsdConsumerWarps);
     }
-    const int rows = min(32, batch - b0);
-    for (int j0 = 0; j0 < rows; j0 += kDsdUnroll) {
-      uint4 v[kDsdUnroll][kMaxChunks];
-      float wj[kDsdUnroll];
-#pragma unroll
-      for (int u = 0; u < kDsdUnroll; ++u) {
-        const int j = j0 + u;
-        const int tj = __shfl_sync(0xffffffffu, t, j & 31);
-        wj[u] = __shfl_sync(0xffffffffu, w, j & 31);
-        const bool use = j < rows && tj >= 0;  // the same for every lane
-        if (!use) wj[u] = 0.f;
-        const __nv_bfloat16* const row =
-            use ? q + (size_t(b0 + j) * tokens + tj) * depth : q;
-#pragma unroll
-        for (int c = 0; c < kMaxChunks; ++c) {
-          const int col = c * kDsdChunk + lane * kVec;
-          v[u][c] = make_uint4(0u, 0u, 0u, 0u);
-          if (use && c < chunks && col < depth) v[u][c] = *reinterpret_cast<const uint4*>(row + col);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kDsdCodes) {  // the producer warp; one thread issues the copies
+    if (lane != 0) return;
+    const int2* const tile_pairs = pairs + size_t(blockIdx.x) * batch * kDsdCodes;
+    for (int i = 0; i < stages; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) mbar_wait(&empty[s], (i / kStages - 1) & 1);  // its last use was read
+      unsigned char* const st = stage(i);
+      const int b0 = i * geo.rows;
+      const int rows = min(geo.rows, batch - b0);
+      mbar_arrive_expect_tx(&full[s], uint32_t(q_bytes) + uint32_t(rows) * kDsdPairBytes);
+      if (kStaged) {
+        for (int c = 0; c < geo.count; ++c) {
+          tensor_copy_g2s(q_s(st) + c * geo.box * kDsdCols, q_map, c0, b0 * tokens + c * geo.box,
+                          &full[s]);
         }
       }
-#pragma unroll
-      for (int u = 0; u < kDsdUnroll; ++u) {
-        // a row past the batch has w = 0 and v = 0, so it adds exactly 0
-#pragma unroll
-        for (int c = 0; c < kMaxChunks; ++c) {
-          const __nv_bfloat162* const h = reinterpret_cast<const __nv_bfloat162*>(&v[u][c]);
-#pragma unroll
-          for (int e = 0; e < kVec / 2; ++e) {
-            const float2 f = __bfloat1622float2(h[e]);
-            acc[c][2 * e] = fmaf(wj[u], f.x, acc[c][2 * e]);
-            acc[c][2 * e + 1] = fmaf(wj[u], f.y, acc[c][2 * e + 1]);
-          }
-        }
-      }
+      bulk_copy_g2s(pairs_s(st), tile_pairs + size_t(b0) * kDsdCodes, rows * kDsdPairBytes,
+                    &full[s]);
     }
+    return;
   }
 
+  // Consumers. Codes of the tile past N sum zeros and are never written.
+  int chunk[kDsdSlots];  // the column chunk (of 8) each slot sums
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
-    const int col = c * kDsdChunk + lane * kVec;
-    if (c < chunks && col < depth) {
+  for (int k = 0; k < kDsdSlots; ++k) chunk[k] = (tid + k) % kDsdSlots;
+  float acc[kDsdSlots][kVec];
+#pragma unroll
+  for (int k = 0; k < kDsdSlots; ++k)
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[k][e] = 0.f;
+
+  for (int i = 0; i < stages; ++i) {
+    const int s = i % kStages;
+    mbar_wait(&full[s], (i / kStages) & 1);
+    unsigned char* const st = stage(i);
+    const int rows = min(geo.rows, batch - i * geo.rows);
+    for (int r = 0; r < rows; ++r) {
+      const int2 pr = pairs_s(st)[r * kDsdCodes + tid];
+      const float w = __int_as_float(pr.y);
+      const __nv_bfloat16* const row =
+          kStaged ? q_s(st) + (r * tokens + pr.x) * kDsdCols
+                  : q + (size_t(i * geo.rows + r) * tokens + pr.x) * depth + c0;
+      uint4 v[kDsdSlots];
+#pragma unroll
+      for (int k = 0; k < kDsdSlots; ++k) {
+        v[k] = *reinterpret_cast<const uint4*>(row + chunk[k] * kVec);
+      }
+#pragma unroll
+      for (int k = 0; k < kDsdSlots; ++k) fma_bf16x8(acc[k], w, v[k]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // the warp is done with the stage
+  }
+
+  const int n = n0 + tid;
+  if (n < codes) {  // codes past N are never written
+#pragma unroll
+    for (int k = 0; k < kDsdSlots; ++k) {
       uint4 out;
       __nv_bfloat162* const h = reinterpret_cast<__nv_bfloat162*>(&out);
 #pragma unroll
-      for (int e = 0; e < kVec / 2; ++e) h[e] = __floats2bfloat162_rn(acc[c][2 * e], acc[c][2 * e + 1]);
-      *reinterpret_cast<uint4*>(dsd + size_t(n) * depth + col) = out;
+      for (int e = 0; e < kVec / 2; ++e) h[e] = __floats2bfloat162_rn(acc[k][2 * e], acc[k][2 * e + 1]);
+      *reinterpret_cast<uint4*>(dsd + size_t(n) * depth + c0 + chunk[k] * kVec) = out;
     }
   }
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// the driver library).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled(EncodeTiled& fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || ptr == nullptr) return cudaErrorNotSupported;
+    cached = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  fn = cached;
+  return cudaSuccess;
+}
+
+// q [batch * tokens, depth] bf16 as boxes of dsd_stage().box rows x 64
+// columns, no swizzle: a box lands as its rows of 128 bytes.
+cudaError_t dsd_q_map(CUtensorMap& map, const __nv_bfloat16* q, int batch, int tokens,
+                      int depth) {
+  EncodeTiled encode = nullptr;
+  const cudaError_t err = encode_tiled(encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {cuuint64_t(depth), cuuint64_t(batch) * tokens};
+  const cuuint64_t strides[1] = {cuuint64_t(depth) * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {cuuint32_t(kDsdCols), cuuint32_t(dsd_stage(tokens).box)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                              const_cast<__nv_bfloat16*>(q), dims, strides, box, elem,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int kStages, bool kStaged>
+cudaError_t launch_dsd(const __nv_bfloat16* q, const int2* pairs, __nv_bfloat16* dsd, int batch,
+                       int tokens, int depth, int codes, cudaStream_t stream) {
+  static unsigned long long smem_set = 0;
+  cudaError_t err = allow_smem(codebook_pool_bwd_dsd_kernel<kStages, kStaged>, kDsdSmemBytes,
+                               smem_set);
+  if (err != cudaSuccess) return err;
+  CUtensorMap map = {};
+  if (kStaged) {
+    err = dsd_q_map(map, q, batch, tokens, depth);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((codes + kDsdCodes - 1) / kDsdCodes, depth / kDsdCols);
+  codebook_pool_bwd_dsd_kernel<kStages, kStaged>
+      <<<grid, kDsdThreads, dsd_smem_bytes(kStages, tokens, kStaged), stream>>>(
+          map, q, pairs, dsd, batch, tokens, depth, codes);
+  return cudaGetLastError();
+}
+
+// The ring's depth for T tokens: the most of 8, 6, 4 and 2 stages that fit,
+// else 0 (the slice rows are read in place).
+int dsd_stages(int tokens) {
+  constexpr int kRing[] = {8, 6, 4, 2};
+  for (int stages : kRing) {
+    if (dsd_smem_bytes(stages, tokens, true) <= kDsdSmemBytes) return stages;
+  }
+  return 0;
+}
+
+constexpr int kMaxDepth = 1024;  // the wrappers' bound (MAX_DEPTH)
+
 bool bad_shape(int batch, int tokens, int depth, int codes) {
   return batch < 1 || batch > 65535 || tokens < 1 || depth < kGatherCols ||
-         depth % kGatherCols != 0 || depth > kMaxChunks * kDsdChunk || codes < 1;
+         depth % kGatherCols != 0 || depth > kMaxDepth || codes < 1;
 }
 
 }  // namespace
@@ -421,8 +608,8 @@ bool bad_shape(int batch, int tokens, int depth, int codes) {
 // keep: [batch, tokens] fp32 or null; amax: [batch, codes] int32 (the
 // forward's argmax); g: [batch, codes] fp32, the gradient of the pooled
 // logits; out: dq [batch, tokens, depth] or dsd [codes, depth], bf16. All
-// contiguous and 16-byte aligned; depth a multiple of 16, at most 1024; any
-// tokens >= 1. coeff = D^-1/2 / temperature. Launch on `stream`, no sync.
+// contiguous and 16-byte aligned; depth a multiple of 16 (of 64 for dsd), at
+// most 1024; any tokens >= 1. coeff = D^-1/2 / temperature. Launch on `stream`, no sync.
 
 // dq. scratch: int32 [batch, 2 codes + tokens + 8] or more (the
 // sorted routing, rows rounded to 16 bytes, then the per-token offsets),
@@ -467,15 +654,33 @@ ILVLM_API int codebook_pool_bwd_dq(const void* q, const void* sd, const void* ke
   return cudaGetLastError();
 }
 
+// dsd. scratch: int32 [2 * batch * codes rounded up to a multiple of 256]
+// or more (the (token, weight) pairs, code tile by code tile), written
+// before it is read.
 ILVLM_API int codebook_pool_bwd_dsd(const void* q, const void* sd, const void* keep,
-                                    const void* amax, const void* g, void* out, int batch,
-                                    int tokens, int depth, int codes, float coeff, void* stream) {
+                                    const void* amax, const void* g, void* out, void* scratch,
+                                    int batch, int tokens, int depth, int codes, float coeff,
+                                    void* stream) {
   (void)sd;
-  if (bad_shape(batch, tokens, depth, codes)) return cudaErrorInvalidValue;
-  const dim3 grid((codes + kDsdWarps - 1) / kDsdWarps);
-  codebook_pool_bwd_dsd_kernel<<<grid, kDsdWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const float*>(keep),
-      static_cast<const int*>(amax), static_cast<const float*>(g),
-      static_cast<__nv_bfloat16*>(out), batch, tokens, depth, codes, coeff);
-  return cudaGetLastError();
+  if (bad_shape(batch, tokens, depth, codes) || depth % kDsdCols != 0 ||
+      (codes + kDsdCodes - 1) / kDsdCodes > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int2* const pairs = static_cast<int2*>(scratch);
+  const long long count = (long long)batch * ((codes + kDsdCodes - 1) / kDsdCodes) * kDsdCodes;
+  codebook_pool_dsd_route_kernel<<<unsigned((count + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(keep), static_cast<const int*>(amax),
+      static_cast<const float*>(g), pairs, batch, tokens, codes, coeff, count);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  auto* op = static_cast<__nv_bfloat16*>(out);
+  switch (dsd_stages(tokens)) {
+    case 8: return launch_dsd<8, true>(qp, pairs, op, batch, tokens, depth, codes, s);
+    case 6: return launch_dsd<6, true>(qp, pairs, op, batch, tokens, depth, codes, s);
+    case 4: return launch_dsd<4, true>(qp, pairs, op, batch, tokens, depth, codes, s);
+    case 2: return launch_dsd<2, true>(qp, pairs, op, batch, tokens, depth, codes, s);
+    default: return launch_dsd<8, false>(qp, pairs, op, batch, tokens, depth, codes, s);
+  }
 }

@@ -87,6 +87,65 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_
                : "memory");
 }
 
+// mbarriers (a 64-bit word in shared memory) for rings filled by bulk
+// copies. A phase completes when its pending arrivals reach 0 and the bytes
+// it expects (expect_tx) have all landed.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals)
+               : "memory");
+}
+
+// Make the initialised barriers visible to the async (bulk copy) proxy.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Arrive and add `bytes` to the bytes the current phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A phase that never
+// completes is a fault of the kernel: trap after ~4 s of clocks rather than
+// hang the device.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  long long start = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (start == 0) start = now;
+    if (now - start > (1ll << 33)) __trap();
+  }
+}
+
+// A bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// from global to shared memory by the copy engine, its bytes counted on `bar`.
+__device__ __forceinline__ void bulk_copy_g2s(void* smem, const void* gmem, uint32_t bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(smem)), "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Issue the copies of rows 0 .. rows - 1 of one head's 64 columns (`src` at
 // row 0, rows `row_stride` elements apart) into `tile` [rows][kLd]; rows >=
 // seq are zero-filled and read nothing. The block's threads split the

@@ -79,10 +79,14 @@ __device__ __forceinline__ void product_rows(const uint32_t (&a)[4][4], const __
 // 0 where masked (keys >= seq, keys above the diagonal when causal, the whole
 // of a row >= seq, and the key tiles >= nt_end, which are masked for every
 // row of the warp). The logits are taken in base 2 (scaled by log2 e) so that
-// exp2f applies directly; p = 2^(x - max) times the row's 1 / sum.
-template <int kNt>
+// exp2f applies directly; p = 2^(x - max) times the row's 1 / sum. With
+// kBias, the fp32 [seq, seq] additive bias enters the scaled logits (times
+// log2 e, as K3's does) before the causal mask, read from L2 for the live
+// entries only; a row whose keys the bias masks all (-inf) gets p = 0.
+template <int kNt, bool kBias>
 __device__ __forceinline__ void softmax_rows(float (&s)[kNt][4], int row0, int seq, bool causal,
-                                             float scale, int nt_end) {
+                                             float scale, int nt_end,
+                                             const float* __restrict__ bias) {
   constexpr float kLog2e = 1.4426950408889634f;
   const float scale2 = scale * kLog2e;
   const int l = lane_id();
@@ -96,7 +100,11 @@ __device__ __forceinline__ void softmax_rows(float (&s)[kNt][4], int row0, int s
       const int r = rows[e >> 1];
       const int c = nt * 8 + 2 * (l & 3) + (e & 1);
       const bool live = r < seq && c < seq && (!causal || c <= r);
-      const float x = live ? s[nt][e] * scale2 : -INFINITY;
+      float x = -INFINITY;
+      if (live) {
+        x = s[nt][e] * scale2;
+        if constexpr (kBias) x = fmaf(__ldg(bias + r * seq + c), kLog2e, x);
+      }
       s[nt][e] = x;
       mx[e >> 1] = fmaxf(mx[e >> 1], x);
     }

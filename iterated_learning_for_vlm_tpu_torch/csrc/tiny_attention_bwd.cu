@@ -3,13 +3,16 @@
 // Replaces the TPU kernel iterated_learning_for_vlm_tpu/ops/fused_attention.py
 // `_bwd_kernel` (l.173, launched by `_bwd_local`). Same function: for each
 // sample and head it recomputes the softmax from q and k (the in_proj bias
-// optionally absorbed, added in bf16 as the forward adds it), then
+// optionally absorbed, added in bf16 as the forward adds it; the constant
+// [S, S] logits bias, if any, and the causal mask as the forward applies
+// them), then
 //
 //   dv = p^T do          p rounded to bf16, fp32 sums
 //   dp = do v^T          fp32
 //   ds = p (dp - sum_j dp p)   fp32 from the unrounded p, then rounded to bf16
 //   dq = ds k * scale,   dk = ds^T q * scale   fp32 sums
 //
+// (the [S, S] bias gets no gradient: the JAX entry point stops it)
 // and writes dq | dk | dv as bf16 into the packed [B, S, 3D] layout the in_proj
 // gradient reads, at the head's column offsets. The TPU variant
 // `_bwd_kernel_fused3` and the XLA hybrid behind `bwd_fuse3` compute the same
@@ -32,7 +35,9 @@
 //   by ldmatrix.trans;
 // - with the causal mask, key tiles after a warp's last query are skipped in
 //   pass 1 and query tiles before its first key in pass 2; tiles wholly past
-//   S too.
+//   S too;
+// - the [S, S] bias, as in K2-fwd: read from L2 in the softmax, a template
+//   flag, so the path without one is unchanged.
 // Every output element has one owner that sums in a fixed order: no float
 // atomics, and two calls agree bit for bit.
 #include "tiny_attention.cuh"
@@ -53,10 +58,11 @@ constexpr size_t bwd_smem_bytes() {
          sizeof(__nv_bfloat16);
 }
 
-template <int kT>
+template <int kT, bool kBias>
 __global__ void __launch_bounds__(kT * 32)
 tiny_attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
                           const __nv_bfloat16* __restrict__ bias3,
+                          const float* __restrict__ bias,
                           const __nv_bfloat16* __restrict__ dout,
                           __nv_bfloat16* __restrict__ dqkv, int seq, int heads, int causal,
                           float scale) {
@@ -106,7 +112,7 @@ tiny_attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) load_a(a[kk], qs, kLd, w0, kk * 16);
       product_rows<kNt>(a, ks, nt_end, s);
-      softmax_rows<kNt>(s, w0, seq, causal != 0, scale, nt_end);  // s = p, fp32
+      softmax_rows<kNt, kBias>(s, w0, seq, causal != 0, scale, nt_end, bias);  // s = p
       cp_async_wait<0>();
       if (bias3 != nullptr) add_bias<kS16>(vs, bias3 + 2 * d_model + h * kHeadDim, seq);
       __syncthreads();
@@ -176,45 +182,57 @@ tiny_attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
   store_rows(adv, 1.f, dst + 2 * d_model, row_stride, w0, seq);
 }
 
-template <int kT>
-cudaError_t launch(const __nv_bfloat16* qkv, const __nv_bfloat16* bias3,
-                   const __nv_bfloat16* dout, __nv_bfloat16* dqkv, int batch, int seq, int heads,
-                   int causal, float scale, cudaStream_t stream) {
+template <int kT, bool kBias>
+cudaError_t launch_with(const __nv_bfloat16* qkv, const __nv_bfloat16* bias3, const float* bias,
+                        const __nv_bfloat16* dout, __nv_bfloat16* dqkv, int batch, int seq,
+                        int heads, int causal, float scale, cudaStream_t stream) {
   static unsigned long long configured = 0;
   constexpr size_t smem = bwd_smem_bytes<kT>();
-  cudaError_t err = allow_smem(tiny_attention_bwd_kernel<kT>, smem, configured);
+  cudaError_t err = allow_smem(tiny_attention_bwd_kernel<kT, kBias>, smem, configured);
   if (err != cudaSuccess) return err;
-  tiny_attention_bwd_kernel<kT><<<dim3(heads, batch), kT * 32, smem, stream>>>(
-      qkv, bias3, dout, dqkv, seq, heads, causal, scale);
+  tiny_attention_bwd_kernel<kT, kBias><<<dim3(heads, batch), kT * 32, smem, stream>>>(
+      qkv, bias3, bias, dout, dqkv, seq, heads, causal, scale);
   return cudaGetLastError();
+}
+
+template <int kT>
+cudaError_t launch(const __nv_bfloat16* qkv, const __nv_bfloat16* bias3, const float* bias,
+                   const __nv_bfloat16* dout, __nv_bfloat16* dqkv, int batch, int seq, int heads,
+                   int causal, float scale, cudaStream_t stream) {
+  return bias != nullptr
+             ? launch_with<kT, true>(qkv, bias3, bias, dout, dqkv, batch, seq, heads, causal,
+                                     scale, stream)
+             : launch_with<kT, false>(qkv, bias3, bias, dout, dqkv, batch, seq, heads, causal,
+                                      scale, stream);
 }
 
 }  // namespace
 
 // qkv: [batch, seq, 3 * heads * 64] bf16, the pre-bias packed projection;
-// bias3: [3 * heads * 64] bf16 or null; dout: [batch, seq, heads * 64] bf16;
-// dqkv: [batch, seq, 3 * heads * 64] bf16. All contiguous and 16-byte
-// aligned. causal != 0 masks keys above the diagonal. Launches on `stream`,
-// does not synchronise.
-ILVLM_API int tiny_attention_bwd(const void* qkv, const void* bias3, const void* dout,
-                                 void* dqkv, int batch, int seq, int heads, int causal,
-                                 float scale, void* stream) {
+// bias3: [3 * heads * 64] bf16 or null; bias: [seq, seq] fp32, contiguous, or
+// null; dout: [batch, seq, heads * 64] bf16; dqkv: [batch, seq, 3 * heads *
+// 64] bf16. All bf16 tensors contiguous and 16-byte aligned. causal != 0
+// masks keys above the diagonal. Launches on `stream`, does not synchronise.
+ILVLM_API int tiny_attention_bwd(const void* qkv, const void* bias3, const void* bias,
+                                 const void* dout, void* dqkv, int batch, int seq, int heads,
+                                 int causal, float scale, void* stream) {
   if (batch < 1 || batch > 65535 || heads < 1 || seq < 1 || seq > kMaxSeq) {
     return cudaErrorInvalidValue;
   }
   const auto* q = static_cast<const __nv_bfloat16*>(qkv);
-  const auto* bias = static_cast<const __nv_bfloat16*>(bias3);
+  const auto* b3 = static_cast<const __nv_bfloat16*>(bias3);
+  const auto* bias_s = static_cast<const float*>(bias);
   const auto* g = static_cast<const __nv_bfloat16*>(dout);
   auto* d = static_cast<__nv_bfloat16*>(dqkv);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((seq + 15) / 16) {
-    case 1: return launch<1>(q, bias, g, d, batch, seq, heads, causal, scale, st);
-    case 2: return launch<2>(q, bias, g, d, batch, seq, heads, causal, scale, st);
-    case 3: return launch<3>(q, bias, g, d, batch, seq, heads, causal, scale, st);
-    case 4: return launch<4>(q, bias, g, d, batch, seq, heads, causal, scale, st);
-    case 5: return launch<5>(q, bias, g, d, batch, seq, heads, causal, scale, st);
-    case 6: return launch<6>(q, bias, g, d, batch, seq, heads, causal, scale, st);
-    case 7: return launch<7>(q, bias, g, d, batch, seq, heads, causal, scale, st);
-    default: return launch<8>(q, bias, g, d, batch, seq, heads, causal, scale, st);
+    case 1: return launch<1>(q, b3, bias_s, g, d, batch, seq, heads, causal, scale, st);
+    case 2: return launch<2>(q, b3, bias_s, g, d, batch, seq, heads, causal, scale, st);
+    case 3: return launch<3>(q, b3, bias_s, g, d, batch, seq, heads, causal, scale, st);
+    case 4: return launch<4>(q, b3, bias_s, g, d, batch, seq, heads, causal, scale, st);
+    case 5: return launch<5>(q, b3, bias_s, g, d, batch, seq, heads, causal, scale, st);
+    case 6: return launch<6>(q, b3, bias_s, g, d, batch, seq, heads, causal, scale, st);
+    case 7: return launch<7>(q, b3, bias_s, g, d, batch, seq, heads, causal, scale, st);
+    default: return launch<8>(q, b3, bias_s, g, d, batch, seq, heads, causal, scale, st);
   }
 }

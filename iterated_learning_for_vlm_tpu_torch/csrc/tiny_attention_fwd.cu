@@ -2,12 +2,14 @@
 //
 // Replaces the TPU kernel iterated_learning_for_vlm_tpu/ops/fused_attention.py
 // `_fwd_kernel` (l.135, launched by `_fwd_local`). Same function: for each
-// sample and head, softmax(q k^T * hd^-1/2 [+ causal mask]) v, read straight
-// from the [B, S, 3D] packed projection (q | k | v column blocks, torch
+// sample and head, softmax(q k^T * hd^-1/2 [+ bias] [+ causal mask]) v, read
+// straight from the [B, S, 3D] packed projection (q | k | v column blocks, torch
 // in_proj order) with the in_proj bias optionally absorbed (added in bf16),
-// written as [B, S, D] at the head's column offset. Numerics follow the
-// unfused path: fp32 logits and softmax, p normalised in fp32 and then
-// rounded to bf16, p v summed in fp32, one cast to bf16.
+// written as [B, S, D] at the head's column offset. The bias is the JAX entry
+// point's constant [S, S] additive logits bias (fp32, no gradient); the
+// causal mask comes as a flag. Numerics follow the unfused path: fp32 logits
+// and softmax, p normalised in fp32 and then rounded to bf16, p v summed in
+// fp32, one cast to bf16.
 //
 // What bounds it on an H100: a (sample, head) is 4 S^2 64 flops over 4 S 64
 // bf16 values of device memory, so it is bound by bytes (at B = 256, S = 50,
@@ -28,7 +30,11 @@
 //   softmax's instructions rivalled the loads), and p goes from the C layout
 //   straight into the A fragments of p v;
 // - with the causal mask, the key tiles above a warp's diagonal are skipped
-//   in both products, and so are tiles wholly past S.
+//   in both products, and so are tiles wholly past S;
+// - an [S, S] bias (at most 64 KB at S = 128, the same for every sample and
+//   head) is read from L2 into the softmax's registers, entry by entry where
+//   the logit is live; it is a template flag, so the path without one is
+//   unchanged.
 #include "tiny_attention.cuh"
 
 namespace {
@@ -41,12 +47,12 @@ constexpr size_t fwd_smem_bytes() {
   return size_t(3) * 16 * kT * kLd * sizeof(__nv_bfloat16);
 }
 
-template <int kT>
+template <int kT, bool kBias>
 __global__ void __launch_bounds__(kT * 32)
 tiny_attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
                           const __nv_bfloat16* __restrict__ bias3,
-                          __nv_bfloat16* __restrict__ out, int seq, int heads, int causal,
-                          float scale) {
+                          const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                          int seq, int heads, int causal, float scale) {
   constexpr int kS16 = 16 * kT;
   constexpr int kNt = 2 * kT;  // 8-key tiles of a row
   extern __shared__ __align__(16) unsigned char smem[];
@@ -82,7 +88,7 @@ tiny_attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
     for (int kk = 0; kk < 4; ++kk) load_a(qa[kk], qs, kLd, row0, kk * 16);
     product_rows<kNt>(qa, ks, nt_end, s);
   }
-  softmax_rows<kNt>(s, row0, seq, causal != 0, scale, nt_end);
+  softmax_rows<kNt, kBias>(s, row0, seq, causal != 0, scale, nt_end, bias);
   cp_async_wait<0>();
   if (bias3 != nullptr) add_bias<kS16>(vs, bias3 + 2 * d_model + h * kHeadDim, seq);
   __syncthreads();
@@ -107,41 +113,56 @@ tiny_attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
              row0, seq);
 }
 
-template <int kT>
-cudaError_t launch(const __nv_bfloat16* qkv, const __nv_bfloat16* bias3, __nv_bfloat16* out,
-                   int batch, int seq, int heads, int causal, float scale, cudaStream_t stream) {
+template <int kT, bool kBias>
+cudaError_t launch_with(const __nv_bfloat16* qkv, const __nv_bfloat16* bias3, const float* bias,
+                        __nv_bfloat16* out, int batch, int seq, int heads, int causal,
+                        float scale, cudaStream_t stream) {
   static unsigned long long configured = 0;
   constexpr size_t smem = fwd_smem_bytes<kT>();
-  cudaError_t err = allow_smem(tiny_attention_fwd_kernel<kT>, smem, configured);
+  cudaError_t err = allow_smem(tiny_attention_fwd_kernel<kT, kBias>, smem, configured);
   if (err != cudaSuccess) return err;
-  tiny_attention_fwd_kernel<kT><<<dim3(heads, batch), kT * 32, smem, stream>>>(
-      qkv, bias3, out, seq, heads, causal, scale);
+  tiny_attention_fwd_kernel<kT, kBias><<<dim3(heads, batch), kT * 32, smem, stream>>>(
+      qkv, bias3, bias, out, seq, heads, causal, scale);
   return cudaGetLastError();
+}
+
+template <int kT>
+cudaError_t launch(const __nv_bfloat16* qkv, const __nv_bfloat16* bias3, const float* bias,
+                   __nv_bfloat16* out, int batch, int seq, int heads, int causal, float scale,
+                   cudaStream_t stream) {
+  return bias != nullptr
+             ? launch_with<kT, true>(qkv, bias3, bias, out, batch, seq, heads, causal, scale,
+                                     stream)
+             : launch_with<kT, false>(qkv, bias3, bias, out, batch, seq, heads, causal, scale,
+                                      stream);
 }
 
 }  // namespace
 
 // qkv: [batch, seq, 3 * heads * 64] bf16, contiguous, 16-byte aligned;
-// bias3: [3 * heads * 64] bf16 or null; out: [batch, seq, heads * 64] bf16.
-// causal != 0 masks keys above the diagonal. Launches on `stream`, does not
+// bias3: [3 * heads * 64] bf16 or null; bias: [seq, seq] fp32, contiguous, or
+// null; out: [batch, seq, heads * 64] bf16. causal != 0 masks keys above the
+// diagonal (after the bias is added). Launches on `stream`, does not
 // synchronise.
-ILVLM_API int tiny_attention_fwd(const void* qkv, const void* bias3, void* out, int batch,
-                                 int seq, int heads, int causal, float scale, void* stream) {
+ILVLM_API int tiny_attention_fwd(const void* qkv, const void* bias3, const void* bias, void* out,
+                                 int batch, int seq, int heads, int causal, float scale,
+                                 void* stream) {
   if (batch < 1 || batch > 65535 || heads < 1 || seq < 1 || seq > kMaxSeq) {
     return cudaErrorInvalidValue;
   }
   const auto* q = static_cast<const __nv_bfloat16*>(qkv);
-  const auto* bias = static_cast<const __nv_bfloat16*>(bias3);
+  const auto* b3 = static_cast<const __nv_bfloat16*>(bias3);
+  const auto* bias_s = static_cast<const float*>(bias);
   auto* o = static_cast<__nv_bfloat16*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((seq + 15) / 16) {
-    case 1: return launch<1>(q, bias, o, batch, seq, heads, causal, scale, st);
-    case 2: return launch<2>(q, bias, o, batch, seq, heads, causal, scale, st);
-    case 3: return launch<3>(q, bias, o, batch, seq, heads, causal, scale, st);
-    case 4: return launch<4>(q, bias, o, batch, seq, heads, causal, scale, st);
-    case 5: return launch<5>(q, bias, o, batch, seq, heads, causal, scale, st);
-    case 6: return launch<6>(q, bias, o, batch, seq, heads, causal, scale, st);
-    case 7: return launch<7>(q, bias, o, batch, seq, heads, causal, scale, st);
-    default: return launch<8>(q, bias, o, batch, seq, heads, causal, scale, st);
+    case 1: return launch<1>(q, b3, bias_s, o, batch, seq, heads, causal, scale, st);
+    case 2: return launch<2>(q, b3, bias_s, o, batch, seq, heads, causal, scale, st);
+    case 3: return launch<3>(q, b3, bias_s, o, batch, seq, heads, causal, scale, st);
+    case 4: return launch<4>(q, b3, bias_s, o, batch, seq, heads, causal, scale, st);
+    case 5: return launch<5>(q, b3, bias_s, o, batch, seq, heads, causal, scale, st);
+    case 6: return launch<6>(q, b3, bias_s, o, batch, seq, heads, causal, scale, st);
+    case 7: return launch<7>(q, b3, bias_s, o, batch, seq, heads, causal, scale, st);
+    default: return launch<8>(q, b3, bias_s, o, batch, seq, heads, causal, scale, st);
   }
 }

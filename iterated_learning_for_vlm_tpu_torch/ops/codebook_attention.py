@@ -46,7 +46,7 @@ from . import _build
 from ..models.sparsemax import sparsemax_bisect
 
 DEPTH_STEP = 64  # the forward kernel stages D in steps of 64
-MAX_DEPTH = 1024  # the forward keeps a [codes, D] tile resident (128 KB); dsd D / 32 sums a lane
+MAX_DEPTH = 1024  # the forward keeps a [codes, D] tile resident (128 KB)
 
 
 def codebook_pool_fwd_reference(q: torch.Tensor, sd: torch.Tensor,
@@ -170,22 +170,21 @@ def codebook_pool_bwd_reference(q, sd, keep, temperature, amax, g):
             codebook_pool_bwd_dsd_reference(q, sd, keep, temperature, amax, g))
 
 
-_BWD_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
-# dq takes an int32 scratch (after the output) for its sorted routing
-_DQ_ARGTYPES = _BWD_ARGTYPES[:6] + (ctypes.c_void_p,) + _BWD_ARGTYPES[6:]
+# (q, sd, keep, amax, g, out, scratch), (batch, tokens, depth, codes), coeff,
+# stream; the int32 scratch holds the entry's routing
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4 + (ctypes.c_float,
+                                                                 ctypes.c_void_p)
 
 
-def _launch_bwd(entry, out, q, sd, keep, temperature, amax, g, scratch=()):
+def _launch_bwd(entry, out, q, sd, keep, temperature, amax, g, scratch):
     _check_bwd_args(q, sd, keep, amax, g, entry)
     b, t, d = q.shape
     with torch.cuda.device(q.device):
-        fn = _build.kernel(entry, _DQ_ARGTYPES if scratch else _BWD_ARGTYPES)
+        fn = _build.kernel(entry, _BWD_ARGTYPES)
         status = fn(q.data_ptr(), sd.data_ptr(), None if keep is None else keep.data_ptr(),
-                    amax.data_ptr(), g.data_ptr(), out.data_ptr(),
-                    *(x.data_ptr() for x in scratch), b, t, d, sd.shape[0],
-                    pool_coeff(d, temperature), torch.cuda.current_stream().cuda_stream)
+                    amax.data_ptr(), g.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, t, d,
+                    sd.shape[0], pool_coeff(d, temperature),
+                    torch.cuda.current_stream().cuda_stream)
     _build.check(status, entry)
     return out
 
@@ -204,7 +203,7 @@ def codebook_pool_bwd_dq(q, sd, keep, temperature, amax, g):
     n2, t4 = (sd.shape[0] + 1) // 2 * 2, (t + 4) // 4 * 4
     scratch = torch.empty((b * (2 * n2 + t4),), dtype=torch.int32, device=q.device)
     out = _launch_bwd("codebook_pool_bwd_dq", torch.empty_like(q), q, sd, keep,
-                      temperature, amax, g, (scratch,))
+                      temperature, amax, g, scratch)
     codebook_pool_bwd_dq.launches += 1
     return out
 
@@ -213,13 +212,18 @@ codebook_pool_bwd_dq.launches = 0
 
 
 def codebook_pool_bwd_dsd(q, sd, keep, temperature, amax, g):
-    """``dsd [N, D]`` in sd's dtype (arguments as :func:`codebook_pool_bwd_dq`)."""
+    """``dsd [N, D]`` in sd's dtype (arguments as :func:`codebook_pool_bwd_dq`).
+    On the card: a route kernel writes each (b, n)'s token and weight into an
+    int32 scratch (per row, 2N values, N rounded up to 256), then the gather
+    kernel walks the batch rows in order."""
     if q.device.type == "cpu":
         return codebook_pool_bwd_dsd_reference(q, sd, keep, temperature, amax, g)
     if q.device.type != "cuda":
         raise ValueError(f"codebook_pool_bwd_dsd: unsupported device {q.device}")
+    n256 = (sd.shape[0] + 255) // 256 * 256
+    scratch = torch.empty((q.shape[0] * 2 * n256,), dtype=torch.int32, device=q.device)
     out = _launch_bwd("codebook_pool_bwd_dsd", torch.empty_like(sd), q, sd, keep,
-                      temperature, amax, g)
+                      temperature, amax, g, scratch)
     codebook_pool_bwd_dsd.launches += 1
     return out
 

@@ -2,7 +2,7 @@
 
 Run on a machine with a CUDA GPU, from the root of a checkout:
 
-    python -m iterated_learning_for_vlm_tpu_torch.tools.pool_bench [--iters 20]
+    python -m iterated_learning_for_vlm_tpu_torch.tools.pool_bench [--iters 20] [--kernels dsd]
 
 For each shape (B = 256, codebook 4096 x 512, bf16: the CLIP-FDT image tower
 T=49, the text tower at T=32 and T=77 with pads, the ViT-B/16 image tower
@@ -12,14 +12,19 @@ version (``max_abs_err`` beside the tolerance ``chip_smoke.py`` uses) and
 timed two ways over ``--iters`` calls after a warm-up: ``*_ms`` by CUDA
 events around the calls (host launch gaps included) and ``*_kernel_ms`` as
 the summed durations of the codebook kernels under ``torch.profiler``
-(device time alone; ``*_kernels`` splits it by kernel name). A shape the
-checkout's kernels refuse is reported as an error. It prints one JSON object
-with the card's name and power limit. To compare two versions of the kernels
-on one card, run it from both checkouts in turns (a, b, b, a) in one call.
+(device time alone; ``*_kernels`` splits it by kernel name). ``*_digest``
+is a hash of each call's output bytes (pooled and amax for the forward), so
+two versions of a kernel that sum in the same order can be shown to give the
+same bits. A shape the checkout's kernels refuse is reported as an error. It
+prints one JSON object with the card's name and power limit. To compare two
+versions of the kernels on one card, run it from both checkouts in turns
+(a, b, b, a) in one call; to compare with a checkout whose copy of this
+script predates a key, copy this file into it first.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
 import subprocess
@@ -65,6 +70,14 @@ def kernel_ms(fn, iters: int) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA and "codebook_pool" in e.key}
 
 
+def digest(*tensors) -> str:
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def max_err(got, ref, atol, rtol):
     """(max |got - ref|, every element within atol + rtol |ref|)."""
     err = (got.float() - ref.float()).abs()
@@ -87,7 +100,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--kernels", default="fwd,dq,dsd",
+                    help="comma-separated subset of fwd, dq, dsd to check and time")
     args = ap.parse_args()
+    which = args.kernels.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("pool_bench: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -106,23 +122,27 @@ def main() -> None:
         args_b = (q, sd, keep, temp, amax, gp)
         ref_p, _ = cb.codebook_pool_fwd_reference(q, sd, keep, temp)
         checks = {"fwd": max_err(got_p, ref_p, POOL_ATOL, POOL_RTOL)}
+        digests = {"fwd": digest(got_p, amax)}
         del ref_p, got_p
-        ref_dq = cb.codebook_pool_bwd_dq_reference(*args_b)
-        checks["dq"] = max_err(cb.codebook_pool_bwd_dq(*args_b), ref_dq, POOL_BWD_ATOL,
-                               POOL_BWD_RTOL)
-        del ref_dq
-        checks["dsd"] = max_err(cb.codebook_pool_bwd_dsd(*args_b),
-                                cb.codebook_pool_bwd_dsd_reference(*args_b), POOL_BWD_ATOL,
-                                POOL_BWD_RTOL)
+        for what, kernel, plain in (
+                ("dq", cb.codebook_pool_bwd_dq, cb.codebook_pool_bwd_dq_reference),
+                ("dsd", cb.codebook_pool_bwd_dsd, cb.codebook_pool_bwd_dsd_reference)):
+            if what in which:
+                got = kernel(*args_b)
+                checks[what] = max_err(got, plain(*args_b), POOL_BWD_ATOL, POOL_BWD_RTOL)
+                digests[what] = digest(got)
+                del got
         calls = {"fwd": lambda: cb.codebook_pool_fwd(q, sd, keep, temp),
                  "dq": lambda: cb.codebook_pool_bwd_dq(*args_b),
                  "dsd": lambda: cb.codebook_pool_bwd_dsd(*args_b)}
+        calls = {what: fn for what, fn in calls.items() if what in which}
         row = {f"{what}_ms": device_ms(fn, args.iters) for what, fn in calls.items()}
         for what, fn in calls.items():
             row[f"{what}_kernels"] = kernel_ms(fn, args.iters)
             row[f"{what}_kernel_ms"] = sum(row[f"{what}_kernels"].values())
         row.update({f"{what}_max_abs_err": err for what, (err, _) in checks.items()})
         row.update({f"{what}_within_tol": ok for what, (_, ok) in checks.items()})
+        row.update({f"{what}_digest": h for what, h in digests.items()})
         rows[name] = row
     print(json.dumps({"nvidia_smi": smi[0] if smi else None, "batch": args.batch,
                       "times": rows}))

@@ -148,6 +148,72 @@ def test_tiny_attention_function_bias_grad(dev):
     assert berr <= BIAS_GRAD_RTOL * ref_b.abs().max().item(), berr
 
 
+def _k2_bias(s, g, dev):
+    """A random fp32 [S, S] logits bias with ~20% of its entries -inf and a
+    finite diagonal, so every row keeps a key even under the causal mask."""
+    bias = 1.5 * torch.randn(s, s, generator=g, device=dev)
+    bias[torch.rand(s, s, generator=g, device=dev) < 0.2] = float("-inf")
+    bias.fill_diagonal_(0.0)
+    return bias
+
+
+@pytest.mark.parametrize("b,s,h,causal,with_b3", [
+    (2, 15, 2, False, True), (2, 15, 2, True, False), (4, 50, 12, False, True),
+    (2, 77, 8, True, True), (2, 77, 8, False, False), (2, 128, 4, False, True),
+    (2, 128, 4, True, True),
+])
+def test_tiny_attention_bias_kernels_match_plain(dev, b, s, h, causal, with_b3):
+    """``fused_tiny_attention(qkv, h, bias)`` on the card: K2-fwd and K2-bwd
+    launch once each with the [S, S] bias (composed with the causal flag),
+    match their plain versions, give the bias no gradient, and the backward
+    repeats bit for bit."""
+    d = 64 * h
+    g = _gen(s + 4000)
+    qkv = torch.randn(b, s, 3 * d, generator=g, device=dev).to(torch.bfloat16)
+    bias3 = (0.3 * torch.randn(3 * d, generator=g, device=dev)).to(torch.bfloat16)
+    bias3 = bias3 if with_b3 else None
+    dout = torch.randn(b, s, d, generator=g, device=dev).to(torch.bfloat16)
+    bias = _k2_bias(s, g, dev).requires_grad_()
+    before = (fa.tiny_attention_fwd.launches, fa.tiny_attention_bwd.launches)
+    x = qkv.clone().requires_grad_()
+    out = fa.fused_tiny_attention(x, h, bias, qkv_bias=bias3, causal=causal)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (fa.tiny_attention_fwd.launches, fa.tiny_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert bias.grad is None
+    full = bias.detach() + (fa.causal_bias(s, dev) if causal else 0.0)
+    ref = fa.attention_reference(qkv if bias3 is None else qkv + bias3, h, full)
+    err = (out.float() - ref.float()).abs()
+    assert torch.all(err <= ATTN_ATOL + ATTN_RTOL * ref.float().abs()), err.max().item()
+    ref_g = fa.attention_bwd_reference(qkv, h, causal, bias3, dout, bias.detach())
+    err = (x.grad.float() - ref_g.float()).abs()
+    assert torch.all(err <= ATTN_BWD_ATOL + ATTN_BWD_RTOL * ref_g.float().abs()), err.max().item()
+    args = (qkv, h, causal, bias3, dout, bias.detach())
+    assert torch.equal(fa.tiny_attention_bwd(*args), fa.tiny_attention_bwd(*args))
+
+
+def test_tiny_attention_bias_all_masked_row(dev):
+    """A bias that masks every key of row 3: kernel and plain version both
+    give that row zeros in the output and in dq, and agree elsewhere."""
+    b, s, h = 2, 50, 4
+    g = _gen(11)
+    qkv = torch.randn(b, s, 3 * 64 * h, generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn(b, s, 64 * h, generator=g, device=dev).to(torch.bfloat16)
+    bias = _k2_bias(s, g, dev)
+    bias[3] = float("-inf")
+    got = fa.tiny_attention_fwd(qkv, h, bias=bias)
+    ref = fa.attention_reference(qkv, h, bias)
+    assert torch.all(got[:, 3] == 0) and torch.all(ref[:, 3] == 0)
+    err = (got.float() - ref.float()).abs()
+    assert torch.all(err <= ATTN_ATOL + ATTN_RTOL * ref.float().abs()), err.max().item()
+    got_g = fa.tiny_attention_bwd(qkv, h, False, None, dout, bias)
+    ref_g = fa.attention_bwd_reference(qkv, h, False, None, dout, bias)
+    assert torch.all(got_g[:, 3, :64 * h] == 0) and torch.isfinite(ref_g).all()
+    err = (got_g.float() - ref_g.float()).abs()
+    assert torch.all(err <= ATTN_BWD_ATOL + ATTN_BWD_RTOL * ref_g.float().abs()), err.max().item()
+
+
 def _flash_case(dev, b, s, h, bias_kind, seed):
     """q, k, v as the [B, S, H, 64] column-block views of one packed
     [B, S, 3D] tensor (the tower route's layout), a contiguous output
@@ -386,10 +452,73 @@ def test_codebook_pool_kernels_repeat_bit_for_bit(dev, t):
     assert torch.equal(cb.codebook_pool_bwd_dq(*args), cb.codebook_pool_bwd_dq(*args))
 
 
+# dsd's ring: a stage holds min(8, 256 // T) batch rows' slices in one
+# tensor copy up to T = 256, one row in several copies past it, and the
+# slice rows are read in place past T = 888; each edge from both sides (8
+# rows a stage to 7 at T = 33, 2 to 1 at T = 129, one copy to two at 257,
+# 4 stages to 2 at 437)
+DSD_RING_EDGES = [12, 13, 32, 33, 128, 129, 256, 257, 436, 437, 888, 889]
+
+
+@pytest.mark.parametrize("t", DSD_RING_EDGES)
+def test_codebook_pool_dsd_ring_edges(dev, t):
+    """K1-bwd dsd on both sides of each change of its ring's depth, with a
+    ragged last code tile (N = 600) and pads, against the plain version."""
+    b, d, n = 6, 128, 600
+    q, sd, keep = _pool_case(dev, b, t, d, n, True, seed=t + 9)
+    _, amax = cb.codebook_pool_fwd(q, sd, keep, 0.9)
+    gp = torch.randn(b, n, generator=_gen(t + 1), device=dev)
+    args = (q, sd, keep, 0.9, amax, gp)
+    before = cb.codebook_pool_bwd_dsd.launches
+    got = cb.codebook_pool_bwd_dsd(*args)
+    torch.cuda.synchronize()
+    assert cb.codebook_pool_bwd_dsd.launches == before + 1
+    ref = cb.codebook_pool_bwd_dsd_reference(*args)
+    err = (got.float() - ref.float()).abs()
+    assert torch.all(err <= POOL_BWD_ATOL + POOL_BWD_RTOL * ref.float().abs()), err.max().item()
+
+
+@pytest.mark.parametrize("t,n", [(49, 4096), (32, 4093), (889, 300)])
+def test_codebook_pool_dsd_all_pad_row_adds_nothing(dev, t, n):
+    """A batch row whose keep is all 0 routes weight 0 to every code: dsd
+    with it equals, bit for bit, dsd of the batch without it (each element
+    summed in order, so a zero term changes nothing), and matches the plain
+    version. N = 4093 ends in a partial code tile, T = 889 reads the rows in
+    place."""
+    b, d = 5, 512
+    q, sd, keep = _pool_case(dev, b, t, d, n, True, seed=t + 21)
+    keep[2] = 0.0
+    _, amax = cb.codebook_pool_fwd(q, sd, keep, 1.0)
+    gp = torch.randn(b, n, generator=_gen(t + 2), device=dev)
+    got = cb.codebook_pool_bwd_dsd(q, sd, keep, 1.0, amax, gp)
+    ref = cb.codebook_pool_bwd_dsd_reference(q, sd, keep, 1.0, amax, gp)
+    err = (got.float() - ref.float()).abs()
+    assert torch.all(err <= POOL_BWD_ATOL + POOL_BWD_RTOL * ref.float().abs()), err.max().item()
+    rows = [0, 1, 3, 4]
+    without = cb.codebook_pool_bwd_dsd(q[rows].contiguous(), sd, keep[rows].contiguous(), 1.0,
+                                       amax[rows].contiguous(), gp[rows].contiguous())
+    assert torch.equal(got, without)
+
+
+@pytest.mark.parametrize("t", [32, 49, 196, 1024])
+def test_codebook_pool_dsd_repeats_bit_for_bit(dev, t):
+    """K1-bwd dsd at B = 256, D = 512, N = 4096 (T = 1024 on the in-place
+    rows): one thread sums each element in batch order, no atomics, so two
+    calls agree bit for bit."""
+    q, sd, keep = _pool_case(dev, 256 if t < 1024 else 32, t, 512, 4096, t == 32, seed=t + 13)
+    _, amax = cb.codebook_pool_fwd(q, sd, keep, 1.0)
+    gp = torch.randn(q.shape[0], 4096, generator=_gen(t + 3), device=dev)
+    args = (q, sd, keep, 1.0, amax, gp)
+    assert torch.equal(cb.codebook_pool_bwd_dsd(*args), cb.codebook_pool_bwd_dsd(*args))
+
+
 def test_wrappers_raise_on_unsupported_cuda_inputs(dev):
-    with pytest.raises(ValueError, match="causal=True"):
+    with pytest.raises(ValueError, match="bias must"):
         fa.fused_tiny_attention(torch.zeros(1, 4, 3 * 64, dtype=torch.bfloat16, device=dev),
-                                1, fa.causal_bias(4, dev))
+                                1, fa.causal_bias(5, dev))
+    with pytest.raises(ValueError, match="bias must"):
+        fa.tiny_attention_fwd(torch.zeros(1, 4, 3 * 64, dtype=torch.bfloat16, device=dev), 1,
+                              bias=fa.causal_bias(4, dev).to(torch.bfloat16))
     with pytest.raises(ValueError, match="bfloat16"):
         fa.tiny_attention_fwd(torch.zeros(1, 4, 3 * 64, device=dev), 1)
     with pytest.raises(ValueError, match="bfloat16"):

@@ -6,7 +6,9 @@ the CPU: the JAX Pallas kernels run in interpret mode, the port's kernel
 wrappers take their plain versions (inside the same ``autograd.Function``s
 the card runs). Covered: the sparsemax VJP (sort and bisection), the
 codebook pooling backward (K1-bwd dq and dsd), the tiny-attention backward
-(K2-bwd, with ``dbias3``) and the gradients of the whole small CLIP-FDT loss.
+(K2-bwd, with ``dbias3``, and with the JAX entry point's ``[S, S]`` logits
+bias, which gets no gradient) and the gradients of the whole small CLIP-FDT
+loss.
 
 Tolerances: atol 1e-5 on O(1) gradients of single functions (fp32 on both
 sides, summation order only); the whole-model gradients as stated there.
@@ -31,6 +33,7 @@ from iterated_learning_for_vlm_tpu_torch.tools.torch_checkpoint import (
     load_jax_params, state_dict_from_jax_params,
 )
 from iterated_learning_for_vlm_tpu_torch.train.loss import clip_info_nce
+from test_torch_port_layers import K2_BIAS_CASES, _bf16_spread, k2_bias_inputs
 from test_torch_port_slice import make_batch, small_cfg
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -233,6 +236,48 @@ def test_tiny_attention_gradients_match_jax(b, s, h, causal, with_bias):
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_x), atol=ATOL)
     if with_bias:
         np.testing.assert_allclose(tb.grad.numpy(), np.asarray(want_b), atol=ATOL)
+
+
+@pytest.mark.parametrize("s,with_b3,dtype,causal", K2_BIAS_CASES)
+def test_tiny_attention_bias_gradients_match_jax(s, with_b3, dtype, causal):
+    """Autograd through ``fused_tiny_attention(qkv, h, bias)`` (the
+    ``TinyAttention`` Function, plain versions on the CPU) against ``jax.vjp``
+    of the JAX call: ``dqkv`` and ``dbias3``; the ``[S, S]`` bias gets no
+    gradient (JAX stops it). fp32 within ATOL. bf16: dqkv as the bf16
+    forward (p and ds rounded at the same places on both sides: at most
+    0.1% of elements cross a rounding boundary, by at most one ulp at the
+    tensor's scale). JAX sums ``dbias3`` in bf16 itself; the port sums in
+    fp32 and rounds once, so it is held to the fp32 sum of JAX's ``dqkv``:
+    one bf16 ulp plus the summed ``dqkv`` differences."""
+    h = 2
+    qkv, bias3, bias, dout, jbias = k2_bias_inputs(s, causal, seed=70 + s)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def jf(x, b3):
+        return jfa.fused_tiny_attention(x, h, bias=jnp.asarray(jbias), head_group=2,
+                                        batch_block=2, qkv_bias=b3 if with_b3 else None)
+
+    _, vjp = jax.vjp(jf, jnp.asarray(qkv, jdt), jnp.asarray(bias3, jdt))
+    want_x, want_b = (np.asarray(g, np.float32) for g in vjp(jnp.asarray(dout, jdt)))
+    xt = torch.from_numpy(qkv).to(tdt).requires_grad_()
+    tb = torch.from_numpy(bias3).to(tdt).requires_grad_() if with_b3 else None
+    tbias = torch.from_numpy(bias).requires_grad_()
+    out = tfa.fused_tiny_attention(xt, h, tbias, qkv_bias=tb, causal=causal)
+    out.backward(torch.from_numpy(dout).to(tdt))
+    assert tbias.grad is None
+    got_x = xt.grad.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got_x, want_x, atol=ATOL)
+        if with_b3:
+            np.testing.assert_allclose(tb.grad.numpy(), want_b, atol=ATOL)
+        return
+    share, ulps = _bf16_spread(got_x, want_x)
+    assert share <= 1e-3 and ulps <= 1.0, (share, ulps)
+    if with_b3:
+        ref_b = want_x.sum(axis=(0, 1))
+        tol = (2.0 ** -7 * np.abs(ref_b) + np.abs(got_x - want_x).sum(axis=(0, 1))
+               + np.finfo(np.float32).eps * np.abs(want_x).sum(axis=(0, 1)))
+        assert np.all(np.abs(tb.grad.float().numpy() - ref_b) <= tol)
 
 
 # -- the whole model ----------------------------------------------------------

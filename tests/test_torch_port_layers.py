@@ -259,6 +259,81 @@ def test_fused_tiny_attention_matches_jax(b, s, h, hd, causal, with_bias):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+def _bf16_spread(got, want):
+    """Share of elements that differ from the JAX kernel's at all, and the
+    largest difference in bf16 ulps of the tensor's largest value."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    return float((got != want).mean()), float(np.abs(got - want).max() / ulp)
+
+
+# the constant [S, S] logits bias of the JAX entry point: S = 13 (JAX pads
+# to 16), 50 (vision), 77 (text); with and without the absorbed in_proj
+# bias; fp32 and bf16; and the causal flag composed with a bias, held to the
+# JAX call with the causal mask folded into the bias
+K2_BIAS_CASES = [(s, with_b3, dt, False) for s in (13, 50, 77) for with_b3 in (False, True)
+                 for dt in ("float32", "bfloat16")] + [(13, True, "float32", True),
+                                                       (77, False, "bfloat16", True)]
+
+
+def k2_bias_inputs(s, causal, seed, b=2, h=2, hd=64):
+    """qkv, the in_proj bias, a random finite [S, S] bias (every row keeps
+    finite keys) and an output gradient; the bias JAX gets (with the causal
+    mask folded in when ``causal``)."""
+    rng = np.random.default_rng(seed)
+    d = h * hd
+    qkv = rng.standard_normal((b, s, 3 * d)).astype(np.float32)
+    bias3 = (0.5 * rng.standard_normal(3 * d)).astype(np.float32)
+    bias = (1.5 * rng.standard_normal((s, s))).astype(np.float32)
+    dout = rng.standard_normal((b, s, d)).astype(np.float32)
+    jbias = bias + np.triu(np.full((s, s), -np.inf, np.float32), k=1) if causal else bias
+    return qkv, bias3, bias, dout, jbias
+
+
+@pytest.mark.parametrize("s,with_b3,dtype,causal", K2_BIAS_CASES)
+def test_fused_tiny_attention_bias_matches_jax(s, with_b3, dtype, causal):
+    """``fused_tiny_attention(qkv, h, bias)`` through ``TinyAttention`` (the
+    plain versions on the CPU) against the JAX kernel in interpret mode. fp32
+    within ATOL; bf16: both round p to bf16 at the same place from fp32
+    logits summed in another order, so at most 0.1% of the outputs may cross
+    a bf16 rounding boundary, by at most one ulp at the tensor's scale."""
+    h = 2
+    qkv, bias3, bias, _, jbias = k2_bias_inputs(s, causal, seed=60 + s)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jfa.fused_tiny_attention(
+        jnp.asarray(qkv, jdt), h, bias=jnp.asarray(jbias), head_group=2, batch_block=2,
+        qkv_bias=jnp.asarray(bias3, jdt) if with_b3 else None)
+    tb3 = torch.from_numpy(bias3).to(tdt) if with_b3 else None
+    got = tfa.fused_tiny_attention(torch.from_numpy(qkv).to(tdt), h, torch.from_numpy(bias),
+                                   head_group=2, qkv_bias=tb3, causal=causal)
+    assert got.dtype == tdt
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    else:
+        share, ulps = _bf16_spread(got.float().numpy(), np.asarray(want, np.float32))
+        assert share <= 1e-3 and ulps <= 1.0, (share, ulps)
+
+
+def test_fused_tiny_attention_all_masked_row():
+    """A bias that masks every key of a row: the plain version gives that
+    row zeros (the kernels' answer; JAX's clamped mask gives a mean over its
+    padded key slots instead, ROADMAP Queue 3), and the other rows keep the
+    JAX values."""
+    s, h = 13, 2
+    qkv, bias3, bias, _, _ = k2_bias_inputs(s, False, seed=5)
+    bias[4] = -np.inf
+    tbias = torch.from_numpy(bias)
+    got = tfa.fused_tiny_attention(_t(qkv), h, tbias, qkv_bias=_t(bias3)).numpy()
+    assert np.all(got[:, 4] == 0)
+    want = np.asarray(jfa.fused_tiny_attention(jnp.asarray(qkv), h, bias=jnp.asarray(bias),
+                                               head_group=2, qkv_bias=jnp.asarray(bias3)))
+    keep = np.arange(s) != 4
+    np.testing.assert_allclose(got[:, keep], want[:, keep], atol=ATOL)
+    dout = torch.ones(2, s, h * 64)
+    dqkv = tfa.tiny_attention_bwd(_t(qkv), h, False, _t(bias3), dout, tbias)
+    assert torch.isfinite(dqkv).all() and torch.all(dqkv[:, 4, :h * 64] == 0)
+
+
 def test_attention_reference_matches_xla_reference():
     rng = np.random.default_rng(9)
     qkv = rng.standard_normal((2, 13, 3 * 64)).astype(np.float32)
@@ -274,6 +349,8 @@ def test_attention_reference_matches_xla_reference():
     (dict(s=129), "S <="),
     (dict(bias_len=10), "qkv_bias"),
     (dict(offset=1), "16-byte aligned"),
+    (dict(bias_shape=(16, 15)), "bias must"),
+    (dict(bias_shape=(16, 16), bias_dtype=torch.bfloat16), "bias must"),
 ])
 def test_attention_kernel_argument_checks(kwargs, match):
     """The checks the wrapper runs before a CUDA launch (tensors here stay
@@ -283,8 +360,12 @@ def test_attention_kernel_argument_checks(kwargs, match):
     if "offset" in kwargs:  # a contiguous view that starts 2 bytes past an aligned address
         qkv = torch.zeros(qkv.numel() + 1, dtype=qkv.dtype)[1:].view(qkv.shape)
     bias = torch.zeros(kwargs["bias_len"], dtype=torch.bfloat16) if "bias_len" in kwargs else None
+    logits_bias = None
+    if "bias_shape" in kwargs:
+        logits_bias = torch.zeros(kwargs["bias_shape"], dtype=kwargs.get("bias_dtype",
+                                                                         torch.float32))
     with pytest.raises(ValueError, match=match):
-        tfa._check_cuda_args(qkv, h, bias)
+        tfa._check_cuda_args(qkv, h, bias, bias=logits_bias)
 
 
 # -- K1: codebook pooling -------------------------------------------------
