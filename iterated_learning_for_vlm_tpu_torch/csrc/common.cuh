@@ -116,11 +116,17 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
 }
 
 // Wait until the phase of parity `parity` has completed. A phase that never
-// completes is a fault of the kernel: trap after ~4 s of clocks rather than
-// hang the device.
+// completes is a fault of the kernel, and hangs it. Compiled with
+// -DILVLM_MBAR_WATCHDOG (add it to NVCC_FLAGS in ops/_build.py while a
+// kernel's barriers are being written), the wait traps after 2^33 clocks
+// (~5 s at 1.75 GHz) instead. It is off by default: on a time-sliced,
+// preempted or debugged context a correct kernel can wait that long, and the
+// trap would end the whole CUDA context.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_addr(bar);
+#ifdef ILVLM_MBAR_WATCHDOG
   long long start = 0;
+#endif
   while (true) {
     uint32_t done;
     asm volatile(
@@ -130,9 +136,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
     if (done) return;
+#ifdef ILVLM_MBAR_WATCHDOG
     const long long now = clock64();
     if (start == 0) start = now;
     if (now - start > (1ll << 33)) __trap();
+#endif
   }
 }
 
