@@ -68,23 +68,46 @@ K2 route (as shipped, ``fused_attn: true``) and the plain route (neither):
    route (24 / 24 launches) against the plain route, a profile of one flash
    step (device time, K3's share, top ops) and one paired time.
 
-Every driven phase (4, 4b, 6, 7, 9, 10) also resets the plain-route counters
+Then the CLIP models are freed and the port's own training loop runs:
+
+11. the solver: ``train/solver.py:Solver(...).train()`` on the card, in a
+   temporary directory, from :func:`solver_config` (the CLIP-FDT model of
+   phase 4 with both kernels on; ``configs/clip_fdt_cc3m.yaml``'s
+   ``grad_clip`` / ``optimizer`` / ``lr_scheduler`` blocks with ``max_iter``
+   12; synthetic data at batch 256 and ctx 77; the temperature halving every
+   4 steps; IL reset every 4 steps, smooth 2, 3 resets; a save at 9 and at
+   12). Run A trains 12 steps (counters reset just before ``train()``, read
+   just after: 12 x the train step's launches, 0 plain routes); the reset
+   after step 8 redraws exactly the reference text leaves, steps 9-10 keep the
+   codebook at its snapshot and the vision tower unmoved, nothing is held or
+   frozen after step 12, and ``metrics.jsonl`` and ``log.txt`` carry the
+   records. Run B resumes from ``ckpt_9`` in a fresh Solver and must give
+   run A's losses of steps 10-12 and its final parameters bit for bit. It
+   prints the per-step host times (not a throughput figure: the synthetic
+   images are drawn on the host), the checkpoint's size, its save and
+   restore seconds, and whether PyYAML imports here.
+
+Every driven phase (4, 4b, 6, 7, 9, 10, 11) also resets the plain-route counters
 (``attention_route.plain_routes``, ``codebook_route.plain_routes``: a kernel
 knob that got the plain path) just before and requires them at 0 just
 after, so the main path never slips onto the plain route unseen.
 
 Any failure exits non-zero. The line before the last is the kernels JSON
-(each kernel's train-step launches, error, times, bound and library time at
-its first shape),
+(each kernel's train-step launches, its launches in phase 11's solver run,
+error, times, bound and library time at its first shape),
 the last ``{"ok": true, "device": {...}}``. All numbers also go to
 ``build/chip_smoke.json`` (git-ignored).
 """
 from __future__ import annotations
 
+import gc
+import importlib.util
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -859,6 +882,210 @@ def clip_phases(dev, rng, counted, report):
     return serve_launches, train_launches
 
 
+# -- phase 11: the port's training loop ---------------------------------------
+SOLVER_STEPS = 12
+# configs/clip_fdt_cc3m.yaml's pconfig: no weight decay on norms, biases, scale
+CC3M_PCONFIG = {"bn_w": {"weight_decay": 0}, "bn_b": {"weight_decay": 0},
+                "ln_w": {"weight_decay": 0}, "ln_b": {"weight_decay": 0},
+                "bias": {"weight_decay": 0}, "logit_scale": {"weight_decay": 0}}
+
+
+def solver_config() -> dict:
+    """Phase 11's config, a dict (the smoke reads no file and needs no
+    PyYAML): the bench model with both kernels on, ``configs/clip_fdt_cc3m.yaml``'s
+    ``grad_clip``, ``optimizer`` and ``lr_scheduler`` blocks with ``max_iter``
+    12, and a compressed schedule: T halves every 4 steps; the IL reset fires
+    at step 8, its smooth phase ends at 10, its window at 12; saves at 9 and
+    12."""
+    return {
+        "model": model_config(fused=True),
+        "grad_clip": {"type": "logit_scale_param_value", "value": 3, "max_value": 6},
+        "t_decay": {"org_t": 1000, "sd_T_decay_iter": 4, "sd_T_decay_w": 0.5, "sd_T_min": 0.01},
+        "optimizer": {"type": "AdamW",
+                      "kwargs": {"lr": 0.00005, "weight_decay": 0.1, "betas": [0.9, 0.98],
+                                 "eps": 0.00000001},
+                      "pconfig": CC3M_PCONFIG},
+        "lr_scheduler": {"type": "Cosine",
+                         "kwargs": {"base_lr": 0.00005, "warmup_lr": 0.0005, "min_lr": 0.0,
+                                    "warmup_steps": 500, "max_iter": SOLVER_STEPS}},
+        "data": {"train": {"synthetic": True, "batch_size": BATCH, "num_batches": SOLVER_STEPS,
+                           "epoch": 1}},
+        "saver": {"print_freq": 4, "val_freq": 0, "save_freq": 9},
+        "reset": {"enable": True, "reset_steps": 4, "reset_nums": 3, "smooth_steps": 2,
+                  "semantics": "reference"},
+    }
+
+
+def instrument(solver, checks: bool):
+    """Wrap the Solver's step and IL controller (no device sync on the way):
+    each step's loss (a device scalar) and host times, and with ``checks``
+    the IL phase checks of run A."""
+    rec = {"loss": {}, "enter": {}, "exit": {}}
+    params, step_fn, on_step = solver.params, solver.train_step, solver.il.on_step
+    snap = {}
+    want = {n for n in params if n.startswith(TEXT_ROOTS) and any(k in n for k in REDRAWN)}
+
+    def spy_step(state, batch, temperature):
+        rec["enter"][state.step + 1] = time.perf_counter()
+        metrics = step_fn(state, batch, temperature)
+        rec["loss"][state.step] = metrics["loss"]
+        return metrics
+
+    def spy_il(state, step):
+        if checks and step in (9, 10):
+            check(torch.equal(params["space_dict"], state.stored_codebook)
+                  and torch.equal(params["space_dict"], snap["space_dict"]),
+                  f"solver: the codebook left its snapshot in step {step}")
+            check(all(torch.equal(params[n], v) for n, v in snap.items()),
+                  f"solver: the frozen vision tower moved in step {step}")
+        before = None
+        if checks and step == 8:
+            before = {n: p.detach().clone() for n, p in params.items()}
+        state = on_step(state, step)
+        if before is not None:
+            changed = {n for n, p in params.items() if not torch.equal(p, before[n])}
+            check(changed == want, f"solver: the reset changed {sorted(changed ^ want)} "
+                                   "unexpectedly")
+            check(all(state.opt_state["count"][n] == 0.0 and not state.opt_state["mu"][n].any()
+                      and not state.opt_state["nu"][n].any() for n in want),
+                  "solver: the reset left moments on a redrawn leaf")
+            check(state.hold_codebook and not state.trainable["visual.proj"],
+                  "solver: the reset did not hold the codebook and freeze the vision tower")
+            snap.update({n: p.detach().clone() for n, p in params.items()
+                         if n.startswith(("visual.", "img_query_model.")) or n == "space_dict"})
+            rec["redrawn"] = len(want)
+            del before
+        rec["exit"][step] = time.perf_counter()
+        return state
+
+    solver.train_step, solver.il.on_step = spy_step, spy_il
+    return rec
+
+
+def solver_phase(dev, counted, report):
+    """Phase 11: the port's Solver on the card, run A (12 steps) and run B
+    (a fresh Solver resumed from run A's ``ckpt_9``). Returns run A's launches."""
+    from iterated_learning_for_vlm_tpu_torch.train import checkpoint as ckpt
+    from iterated_learning_for_vlm_tpu_torch.train import solver as solver_mod
+    from iterated_learning_for_vlm_tpu_torch.utils.config import Config
+
+    yaml_ok = importlib.util.find_spec("yaml") is not None
+    saves = []
+    save_checkpoint = solver_mod.save_checkpoint
+
+    def timed_save(*args, **kwargs):  # the loop's blocking part of an async save
+        t0 = time.perf_counter()
+        path = save_checkpoint(*args, **kwargs)
+        saves.append(time.perf_counter() - t0)
+        return path
+
+    solver_mod.save_checkpoint = timed_save
+    row = {"yaml_importable": yaml_ok}
+    with tempfile.TemporaryDirectory(prefix="ilvlm_solver_") as tmp:
+        t0 = time.perf_counter()
+        a = solver_mod.Solver(Config(solver_config()), output_path=os.path.join(tmp, "a"),
+                              exp_name="smoke", device=dev)
+        sync()
+        row["build_s"] = time.perf_counter() - t0
+        rec_a = instrument(a, checks=True)
+        sync()
+        reset_counters(*counted.values())
+        reset_routes()
+        t0 = time.perf_counter()
+        a.train()
+        sync()
+        row["train_a_s"] = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        check_routes("solver")
+        want = {name: SOLVER_STEPS * n for name, n in TRAIN_LAUNCHES.items()}
+        check(launches == want, f"solver launches {launches}, expected {want}")
+        losses_a = {s: v.item() for s, v in rec_a["loss"].items()}
+        check(sorted(losses_a) == list(range(1, SOLVER_STEPS + 1))
+              and all(np.isfinite(v) for v in losses_a.values()),
+              f"solver losses are not 12 finite values: {losses_a}")
+        check(not a.state.hold_codebook and all(
+            v for n, v in a.state.trainable.items() if n != "visual.conv1.weight"),
+            "solver: something is still held or frozen after the IL window")
+        with open(os.path.join(a.output_path, "metrics.jsonl")) as f:
+            metrics_steps = [json.loads(line)["step"] for line in f]
+        with open(os.path.join(a.output_path, "log.txt")) as f:
+            il_lines = [line.strip() for line in f if ": IL " in line]
+        check(metrics_steps == [4, 8, 12], f"solver metrics.jsonl steps {metrics_steps}")
+        check(any("step 8: IL reset" in x for x in il_lines)
+              and any("step 10: IL smooth end" in x for x in il_lines),
+              f"solver log.txt IL lines {il_lines}")
+        names = sorted(os.listdir(a.save_path))
+        check(names == ["ckpt_12.pth.tar", "ckpt_9.pth.tar"], f"solver checkpoints {names}")
+        ckpt_9 = os.path.join(a.save_path, "ckpt_9.pth.tar")
+        row["checkpoint_bytes"] = os.path.getsize(ckpt_9)
+        row["async_save_blocking_s"] = saves[:]
+        steps = sorted(rec_a["exit"])
+        row["step_host_ms"] = [1e3 * (rec_a["exit"][s] - rec_a["enter"][s]) for s in steps]
+        row["data_host_ms"] = [1e3 * (rec_a["enter"][s] - rec_a["exit"][s - 1]) for s in steps[1:]]
+        row["meters"] = {k: a.meters[k].avg for k in ("batch_time", "data_time")}
+        final = {n: p.detach().cpu() for n, p in a.params.items()}
+        os.remove(os.path.join(a.save_path, "ckpt_12.pth.tar"))
+        del a, rec_a
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # run B: a fresh Solver resumed from ckpt_9, inside the codebook hold
+        t0 = time.perf_counter()
+        b = solver_mod.Solver(Config(solver_config()), output_path=os.path.join(tmp, "b"),
+                              exp_name="smoke", ckpt_path=ckpt_9, device=dev)
+        sync()
+        row["build_and_restore_b_s"] = time.perf_counter() - t0
+        check(b._last_iter == 9 and b.state.hold_codebook, "solver: the resume lost its state")
+        t0 = time.perf_counter()
+        ckpt.restore_checkpoint(ckpt_9, b.model, b.state)  # again, timed alone
+        sync()
+        row["restore_s"] = time.perf_counter() - t0
+        rec_b = instrument(b, checks=False)
+        reset_counters(*counted.values())
+        reset_routes()
+        b.train()
+        sync()
+        check_routes("solver resume")
+        losses_b = {s: v.item() for s, v in rec_b["loss"].items()}
+        diffs = {n: (p.detach().cpu() != final[n]).sum().item() for n, p in b.params.items()}
+        bitwise = (all(losses_b[s] == losses_a[s] for s in (10, 11, 12))
+                   and sorted(losses_b) == [10, 11, 12] and not any(diffs.values()))
+        row["resume"] = {"losses_a": [losses_a[s] for s in (10, 11, 12)],
+                         "losses_b": [losses_b.get(s) for s in (10, 11, 12)],
+                         "bit_for_bit": bitwise,
+                         "params_differing": {n: d for n, d in diffs.items() if d}}
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(b.save_path, b.model, b.state, SOLVER_STEPS)
+        row["sync_save_s"] = time.perf_counter() - t0
+        del b, rec_b, final
+        gc.collect()
+        torch.cuda.empty_cache()
+    solver_mod.save_checkpoint = save_checkpoint
+    report["solver"] = row | {"launches": launches}
+    log(f"solver: {SOLVER_STEPS} steps of Solver.train() at bs{BATCH} ctx77 in "
+        f"{row['train_a_s']:.2f} s (build {row['build_s']:.2f} s); launches {launches}; "
+        f"losses {[round(losses_a[s], 5) for s in sorted(losses_a)]}; the reset after step 8 "
+        "redrew the reference text leaves and zeroed their moments, steps 9-10 kept the "
+        "codebook at its snapshot and the vision tower unmoved, nothing held or frozen after "
+        f"step 12; metrics.jsonl steps {metrics_steps}; log.txt: {il_lines}")
+    log("solver host times (host clock, no device sync; the synthetic images are drawn on "
+        "the host, so these are not throughput figures): step ms "
+        + ", ".join(f"{x:.1f}" for x in row["step_host_ms"]) + "; data ms "
+        + ", ".join(f"{x:.1f}" for x in row["data_host_ms"])
+        + f"; meters (last 4 steps) batch_time {row['meters']['batch_time'] * 1e3:.1f} ms, "
+        f"data_time {row['meters']['data_time'] * 1e3:.1f} ms")
+    log(f"solver checkpoint: {row['checkpoint_bytes']} bytes; async save in the loop blocked "
+        + ", ".join(f"{x:.3f}" for x in row["async_save_blocking_s"])
+        + f" s; a synchronous save {row['sync_save_s']:.3f} s; restore {row['restore_s']:.3f} s; "
+        f"resumed Solver built and restored in {row['build_and_restore_b_s']:.3f} s")
+    log(f"solver resume from ckpt_9: losses of steps 10-12 {row['resume']['losses_b']} against "
+        f"run A's {row['resume']['losses_a']}; bit for bit: {bitwise}"
+        + ("" if bitwise else f"; parameters differing {row['resume']['params_differing']}"))
+    log(f"solver: PyYAML importable on this machine: {yaml_ok}")
+    check(bitwise, "solver: the resume from ckpt_9 did not repeat run A bit for bit")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -1107,6 +1334,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     clip_serve_launches, clip_train_launches = clip_phases(dev, rng, counted, report)
 
+    # 11. the port's Solver, after the CLIP models are freed
+    torch.cuda.empty_cache()
+    solver_launches = solver_phase(dev, counted, report)
+
     report["seconds_total"] = time.perf_counter() - t_start
     out_dir = REPO / "build"
     out_dir.mkdir(exist_ok=True)
@@ -1127,7 +1358,7 @@ def main() -> int:
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
                         **{key: rows[0][key] for key in ("ms", "plain_ms", "bound_ms",
                                                          "bound_by", "library_ms")},
-                        "shape": rows[0]["case"]})
+                        "shape": rows[0]["case"], "launches_solver": solver_launches[name]})
         serving = clip_serve_launches if flash else launches
         if serving.get(name):
             kernels[-1]["launches_serving"] = serving[name]

@@ -1,1 +1,2 @@
-"""Host-side data utilities of the PyTorch port (the caption tokenizer)."""
+"""Host-side data of the PyTorch port: the caption tokenizer and the
+synthetic datasets."""

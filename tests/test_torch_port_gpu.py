@@ -836,3 +836,60 @@ def test_clip_head_width_32_flash_knob_routes_to_plain(dev):
     torch.cuda.synchronize()
     assert _deltas(before) == ([0] * 7, 4, 0)
     _assert_paths_agree(got, _grads_of(plain, batch))
+
+
+def _solver_cfg():
+    """A two-layer bf16 CLIP-FDT Solver config with both kernels on (head
+    width 64, codebook depth 64), on synthetic batches of 8 at ctx 20: IL on
+    (reset at step 4, smooth 1), 6 steps, a save at 3 and at 6."""
+    model = _small_cfg(True)
+    del model["kwargs"]["text_encode"]["vocab_size"]  # the tokenizer's ids
+    return {"model": model,
+            "grad_clip": {"type": "logit_scale_param_value", "value": 3, "max_value": 6},
+            "t_decay": {"org_t": 2.0, "sd_T_decay_iter": 2, "sd_T_decay_w": 0.5,
+                        "sd_T_min": 0.5},
+            "optimizer": {"type": "AdamW", "kwargs": {"weight_decay": 0.1}},
+            "lr_scheduler": {"type": "Cosine", "kwargs": {
+                "base_lr": 5e-4, "warmup_lr": 5e-3, "min_lr": 0.0, "warmup_steps": 2,
+                "max_iter": 6}},
+            "data": {"train": {"synthetic": True, "batch_size": 8, "num_batches": 6}},
+            "saver": {"print_freq": 1, "save_freq": 3},
+            "reset": {"enable": True, "reset_steps": 2, "reset_nums": 3, "smooth_steps": 1}}
+
+
+def _solver_run(tmp_path, name, **kw):
+    from iterated_learning_for_vlm_tpu_torch.train.solver import Solver
+    from iterated_learning_for_vlm_tpu_torch.utils.config import Config
+
+    s = Solver(Config(_solver_cfg()), output_path=str(tmp_path / name), **kw)
+    losses, step_fn = {}, s.train_step
+
+    def spy(state, batch, temperature):
+        m = step_fn(state, batch, temperature)
+        losses[state.step] = m["loss"]
+        return m
+
+    s.train_step = spy
+    before = _counts()
+    s.train()
+    torch.cuda.synchronize()
+    return s, {k: v.item() for k, v in losses.items()}, _deltas(before)
+
+
+def test_solver_kernels_and_resume(dev, tmp_path):
+    """``Solver.train()`` on the card with no device named: 6 steps launch
+    K2-fwd/bwd 4 times a step (2 layers x 2 towers) and K1-fwd, dq and dsd
+    twice, with no plain route; a fresh Solver resumed from ``ckpt_3`` gives
+    the straight run's losses of steps 4-6 and its final parameters bit for
+    bit (no kernel on the path sums with float atomics)."""
+    a, losses_a, counts = _solver_run(tmp_path, "a")
+    assert a.device.type == "cuda"
+    assert counts == ([24, 24, 12, 12, 12, 0, 0], 0, 0)
+    assert sorted(losses_a) == [1, 2, 3, 4, 5, 6]
+    assert all(torch.isfinite(torch.tensor(v)) for v in losses_a.values())
+    ckpt_3 = a.save_path + "/ckpt_3.pth.tar"
+    b, losses_b, counts_b = _solver_run(tmp_path, "b", ckpt_path=ckpt_3)
+    assert counts_b == ([12, 12, 6, 6, 6, 0, 0], 0, 0)
+    assert losses_b == {s: losses_a[s] for s in (4, 5, 6)}
+    for n, p in b.params.items():
+        assert torch.equal(p, a.params[n]), n

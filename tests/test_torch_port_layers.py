@@ -513,9 +513,10 @@ def test_port_imports_no_jax():
     """The port runs where jax is not installed. No source of the port or
     ``chip_smoke.py`` imports jax, flax or the JAX package anywhere; and a
     fresh interpreter that imports its models, ops, encoder and training
-    modules, and encodes captions through ``TorchEncoder.encode_texts`` with
-    no tokenizer given (the port's own, found on first use), has loaded none
-    of them, nor ``regex``."""
+    modules, the Solver and its launcher, and encodes captions through
+    ``TorchEncoder.encode_texts`` with no tokenizer given (the port's own,
+    found on first use), has loaded none of them, nor ``regex``, nor ``yaml``
+    (only ``load_config`` reads YAML)."""
     sources = sorted((REPO / "iterated_learning_for_vlm_tpu_torch").rglob("*.py"))
     sources.append(REPO / "chip_smoke.py")
     assert len(sources) > 20
@@ -532,6 +533,9 @@ def test_port_imports_no_jax():
         "import iterated_learning_for_vlm_tpu_torch.train.il\n"
         "import iterated_learning_for_vlm_tpu_torch.train.schedule\n"
         "import iterated_learning_for_vlm_tpu_torch.train.step\n"
+        "import iterated_learning_for_vlm_tpu_torch.train.solver\n"
+        "import iterated_learning_for_vlm_tpu_torch.cli_entry\n"
+        "import iterated_learning_for_vlm_tpu_torch.utils\n"
         "from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder\n"
         "from iterated_learning_for_vlm_tpu_torch.models import model_entry\n"
         "cfg = {'type': 'clip_fdt_vitb32', 'kwargs': {\n"
@@ -546,7 +550,7 @@ def test_port_imports_no_jax():
         "assert emb.shape == (2, 32) and np.isfinite(emb).all(), emb.shape\n"
         "assert enc.tokenizer.vocab_size == 49409\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{_JAX_ROOTS + ('regex',)!r})\n"
+        f"{_JAX_ROOTS + ('regex', 'yaml')!r})\n"
         "assert not bad, bad\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -1,0 +1,799 @@
+"""PyTorch port vs the JAX package: the Solver, checkpoints and the launcher.
+
+Both Solvers run the repo's tiny CPU configs (fp32, two layers, width 64):
+``configs/clip_fdt_tiny_cpu_cluster.yaml`` (CLIP-FDT, 12 steps; with IL the
+reset fires at step 8, the smooth phase ends at 10 and the window at 12; T
+halves every 4 steps) and ``configs/clip_tiny_cpu_cluster.yaml`` (CLIP, 6
+steps). The JAX Solver runs on one CPU device (``create_mesh(1)``); the port
+Solver on ``device="cpu"``, from the JAX Solver's initial params (bridged by
+``tools/torch_checkpoint.py:load_jax_params``, then ``_build_optimizer``).
+
+Each parity run is made twice on the port side:
+
+- *forced*: before every step the port's model and state are set to the JAX
+  state before that step, so each step is held tightly against JAX's while the
+  port's own loop makes the batches, T, lr and IL transitions;
+- *free*: the port trains on its own from the same initial params. The
+  CLIP-FDT loss then drifts from JAX's: AdamW moves an element whose gradient
+  is at noise level by about lr * sign(noise), and at this config's lr (up to
+  5e-3) such flips compound through the codebook's max-pooling and sparsemax.
+  The JAX Solver against itself, on 1 and on 2 CPU devices (the same sums in
+  another order), differs by up to 3.2e-2 by step 10 on this config, while a
+  1e-7 relative perturbation of the port's initial params moves its losses by
+  at most 2e-6, so the drift comes from the reduction order, not from the
+  port. The free runs are held to the transitions, the log and metrics
+  records and a loss bound stated below.
+
+The JAX and torch random streams differ, so after an IL reset the parity is
+structural (the same leaves redrawn, their moments zeroed, the held codebook
+bit-equal to its snapshot), as in ``test_torch_port_train.py``.
+"""
+import contextlib
+import json
+import logging
+import os
+import re
+import shutil
+import sys
+from dataclasses import dataclass, field
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import traverse_util
+
+from iterated_learning_for_vlm_tpu.data.synthetic import SyntheticClipData as JSyntheticClipData
+from iterated_learning_for_vlm_tpu.parallel.mesh import create_mesh
+from iterated_learning_for_vlm_tpu.tools.torch_checkpoint import load_reference_checkpoint
+from iterated_learning_for_vlm_tpu.train import checkpoint as jckpt
+from iterated_learning_for_vlm_tpu.train import optim as joptim
+from iterated_learning_for_vlm_tpu.train.solver import Solver as JSolver
+from iterated_learning_for_vlm_tpu.train.solver import fdt_temperature as j_fdt_temperature
+from iterated_learning_for_vlm_tpu.train.train_state import TrainState as JTrainState
+from iterated_learning_for_vlm_tpu.utils import config as jconfig
+from iterated_learning_for_vlm_tpu.utils.meters import AverageMeter as JAverageMeter
+from iterated_learning_for_vlm_tpu_torch import cli_entry
+from iterated_learning_for_vlm_tpu_torch.data.synthetic import SyntheticClipData
+from iterated_learning_for_vlm_tpu_torch.tools.torch_checkpoint import (
+    load_jax_params, state_dict_from_jax_params,
+)
+from iterated_learning_for_vlm_tpu_torch.train import checkpoint as ckpt
+from iterated_learning_for_vlm_tpu_torch.train.solver import Solver, fdt_temperature
+from iterated_learning_for_vlm_tpu_torch.utils import config as pconfig
+from iterated_learning_for_vlm_tpu_torch.utils.logging import MetricsWriter
+from iterated_learning_for_vlm_tpu_torch.utils.meters import AverageMeter
+
+REPO = Path(__file__).resolve().parents[1]
+CONFIGS = {"clip_fdt": REPO / "configs" / "clip_fdt_tiny_cpu_cluster.yaml",
+           "clip": REPO / "configs" / "clip_tiny_cpu_cluster.yaml"}
+LAYERS = {"visual": 2, "text": 2}  # the tiny configs' tower depths
+IL_LINE = re.compile(r"step (\d+): IL (reset|smooth end)")
+# Tolerances of the forced runs (each step from JAX's state): the loss of one
+# step from the same state (fp32, other summation orders; measured <= 2e-6).
+FORCED_LOSS_ATOL = 1e-5
+# lr: rtol 1e-6, plus the absolute rounding of JAX's fp32 cosine (about 2^-24
+# of warmup_lr 5e-3, 3e-10), which dominates where the cosine nears 0
+LR_ATOL = 1e-9
+# Free runs: |loss - JAX's| at every step with the same random streams
+# (CLIP-FDT: the JAX Solver against itself on 1 and 2 devices reaches 3.2e-2;
+# measured port vs JAX 3.0e-2). CLIP has no max-pooling or sparsemax to
+# compound the flips and stays within 1e-4 (measured 2.1e-6).
+FREE_LOSS_ATOL = {"clip_fdt": 0.1, "clip": 1e-4}
+# what the reference IL reset redraws in the text tower (train/il.py)
+TEXT_ROOTS = ("encode_text.", "txt_query_model.")
+VISION_ROOTS = ("visual.", "img_query_model.")
+
+
+def _config(name, reset=None, loader=pconfig.load_config, **saver):
+    cfg = loader(str(CONFIGS[name]))
+    if reset is not None:
+        cfg.reset["enable"] = reset
+    cfg.saver.update(saver)
+    return cfg
+
+
+def bridged(tree, layers=None):
+    return state_dict_from_jax_params(tree, layers)
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+class _Lines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def captured(logger_name):
+    """Messages of a logger and its children while the block runs."""
+    handler = _Lines()
+    logger = logging.getLogger(logger_name)
+    logger.addHandler(handler)
+    try:
+        yield handler.lines
+    finally:
+        logger.removeHandler(handler)
+
+
+def il_steps(lines):
+    return [(int(m.group(1)), m.group(2)) for m in map(IL_LINE.search, lines) if m]
+
+
+def read_metrics(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def port_solver(name, reset, out, init=None, **kw):
+    """A port Solver on the CPU, from the JAX initial params ``init``."""
+    s = Solver(_config(name, reset), output_path=str(out), exp_name="run", device="cpu", **kw)
+    if init is not None:
+        load_jax_params(s.model, init)
+        s._build_optimizer()
+    return s
+
+
+@torch.no_grad()
+def force(s, pre):
+    """Set the port Solver's model and state to a host copy of a JAX TrainState."""
+    load_jax_params(s.model, pre.params)
+    st = s.state
+    for key in ("mu", "nu"):
+        for n, v in bridged(pre.opt_state[key]).items():
+            st.opt_state[key][n].copy_(torch.from_numpy(v))
+    st.opt_state["count"] = {n: float(v) for n, v in bridged(pre.opt_state["count"],
+                                                             LAYERS).items()}
+    st.trainable = {n: bool(v) for n, v in bridged(pre.trainable, LAYERS).items()}
+    st.stored_codebook = torch.from_numpy(np.array(pre.stored_codebook, np.float32))
+    st.hold_codebook = bool(pre.hold_codebook)
+    st.ema_buffer = torch.tensor(float(pre.ema_buffer))
+    st.ema_clip_count = torch.tensor(float(pre.ema_clip_count))
+    st.step = int(pre.step)
+
+
+@dataclass
+class Parity:
+    """What a parity run found; the arrays are dropped once compared."""
+    init: dict
+    jax: list = field(default_factory=list)      # per step: loss, lr, T, hold, trainable
+    forced: list = field(default_factory=list)   # per step: loss, lr, T, checks
+    free: list = field(default_factory=list)     # per step: loss, lr, T, hold, trainable
+    jax_il: list = field(default_factory=list)
+    port_il: list = field(default_factory=list)
+    port_log_il: list = field(default_factory=list)
+    jax_metrics: list = field(default_factory=list)
+    port_metrics: list = field(default_factory=list)
+    redrawn_jax: set = field(default_factory=set)
+    redrawn_port: set = field(default_factory=set)
+    hold_checks: dict = field(default_factory=dict)
+
+
+def _jax_run(name, reset, out, res):
+    js = JSolver(_config(name, reset, jconfig.load_config), output_path=str(out / "jax"),
+                 exp_name="run", mesh=create_mesh(1))
+    res.init = jax.device_get(js.params)
+    recs = []
+    step_fn, on_step = js.train_step, js.il.on_step
+
+    def spy_step(state, batch, temperature):
+        pre = jax.device_get(state)
+        new, m = step_fn(state, batch, temperature)
+        mu = bridged(jax.device_get(new.opt_state["mu"]))
+        recs.append({"pre": pre, "batch": jax.device_get(batch),
+                     "loss": float(m["loss"]), "lr": float(m["lr"]), "T": float(temperature),
+                     "post": bridged(jax.device_get(new.params)),
+                     "count": bridged(jax.device_get(new.opt_state["count"]), LAYERS),
+                     "near_zero": {n: np.abs(v) <= 1e-5 * np.abs(v).max() for n, v in mu.items()},
+                     "mu_zero": {n: v == 0 for n, v in mu.items()}})
+        return new, m
+
+    def spy_il(state, step):
+        new = on_step(state, step)
+        if step == 8:  # the leaves the reset redrew
+            before, after = recs[-1]["post"], bridged(jax.device_get(new.params))
+            res.redrawn_jax = {n for n in after if not np.array_equal(after[n], before[n])}
+        recs[-1]["hold"] = bool(new.hold_codebook)
+        recs[-1]["trainable"] = {n: bool(v) for n, v in
+                                 bridged(jax.device_get(new.trainable), LAYERS).items()}
+        return new
+
+    js.train_step, js.il.on_step = spy_step, spy_il
+    with captured("ilvlm") as lines:
+        js.train()
+    res.jax_il = il_steps(lines)
+    res.jax_metrics = read_metrics(os.path.join(js.output_path, "metrics.jsonl"))
+    return recs
+
+
+def _forced_run(name, reset, out, res, recs):
+    s = port_solver(name, reset, out / "forced")
+    step_fn, on_step = s.train_step, s.il.on_step
+
+    def spy_step(state, batch, temperature):
+        rec = recs[state.step]
+        force(s, rec["pre"])
+        same_batch = all(np.array_equal(_np(batch[k]), v) and _np(batch[k]).dtype == v.dtype
+                         for k, v in rec["batch"].items())
+        m = step_fn(state, batch, temperature)
+        lr = rec["lr"]
+        worst = 0.0  # max |param - JAX's| / tol over the model
+        for n, p in s.params.items():
+            near = rec["near_zero"][n] & ~(rec["mu_zero"][n] & (_np(state.opt_state["mu"][n]) == 0))
+            tol = np.where(near, 2 * lr, 5e-2 * lr) + 1e-7
+            worst = max(worst, float((np.abs(_np(p) - rec["post"][n]) / tol).max()))
+        res.forced.append({"loss": float(m["loss"]), "lr": m["lr"], "T": temperature,
+                           "same_batch": same_batch, "param_err_over_tol": worst,
+                           "counts_equal": state.opt_state["count"] == {
+                               n: float(c) for n, c in rec["count"].items()}})
+        return m
+
+    def spy_il(state, step):
+        state = on_step(state, step)
+        res.forced[-1].update(hold=state.hold_codebook, trainable=dict(state.trainable))
+        return state
+
+    s.train_step, s.il.on_step = spy_step, spy_il
+    s.train()
+
+
+def _free_run(name, reset, out, res):
+    s = port_solver(name, reset, out / "free", res.init)
+    step_fn, on_step = s.train_step, s.il.on_step
+    snap = {}
+
+    def spy_step(state, batch, temperature):
+        m = step_fn(state, batch, temperature)
+        res.free.append({"loss": float(m["loss"]), "lr": m["lr"], "T": temperature})
+        return m
+
+    def spy_il(state, step):
+        p = s.params
+        if step in (9, 10):  # after the step, inside the hold
+            res.hold_checks[step] = {
+                "codebook_at_snapshot": torch.equal(p["space_dict"], state.stored_codebook)
+                and torch.equal(p["space_dict"], snap["space_dict"]),
+                "vision_unmoved": all(torch.equal(p[n], v) for n, v in snap.items()
+                                      if n.startswith(VISION_ROOTS))}
+        if step == 11:
+            res.hold_checks[11] = {"codebook_moved": not torch.equal(p["space_dict"],
+                                                                     snap["space_dict"])}
+        before = {n: t.detach().clone() for n, t in p.items()} if step == 8 else None
+        state = on_step(state, step)
+        if step == 8:
+            res.redrawn_port = {n for n in p if not torch.equal(p[n], before[n])}
+            opt = state.opt_state
+            res.hold_checks[8] = {"moments_zeroed": all(
+                opt["count"][n] == 0.0 and not opt["mu"][n].any() and not opt["nu"][n].any()
+                for n in res.redrawn_port)}
+            snap.update({n: t.detach().clone() for n, t in p.items()
+                         if n.startswith(VISION_ROOTS) or n == "space_dict"})
+        res.free[-1].update(hold=state.hold_codebook, trainable=dict(state.trainable))
+        return state
+
+    s.train_step, s.il.on_step = spy_step, spy_il
+    with captured("ilvlm_torch") as lines:
+        s.train()
+    res.port_il = il_steps(lines)
+    with open(os.path.join(s.output_path, "log.txt")) as f:
+        res.port_log_il = il_steps(f.read().splitlines())
+    res.port_metrics = read_metrics(os.path.join(s.output_path, "metrics.jsonl"))
+
+
+def parity_run(name, reset, out):
+    res = Parity(init={})
+    recs = _jax_run(name, reset, out, res)
+    res.jax = [{k: r[k] for k in ("loss", "lr", "T", "hold", "trainable")} for r in recs]
+    _forced_run(name, reset, out, res, recs)
+    del recs
+    _free_run(name, reset, out, res)
+    return res
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The parity runs, made once per module on first use."""
+    cache = {}
+
+    def get(name, reset):
+        if (name, reset) not in cache:
+            cache[(name, reset)] = parity_run(name, reset,
+                                              tmp_path_factory.mktemp(f"{name}_{reset}"))
+        return cache[(name, reset)]
+
+    return get
+
+
+# -- (a) synthetic data ------------------------------------------------------------
+@pytest.mark.parametrize("correlated", [False, True])
+@pytest.mark.parametrize("rank,world", [(0, 1), (0, 2), (1, 2)])
+@pytest.mark.parametrize("seed", [0, 3])
+def test_synthetic_batches_match_jax(seed, rank, world, correlated):
+    """The same seed, rank and index give the same arrays, bit for bit, and
+    the same dtypes (``np.array_equal``)."""
+    kw = dict(batch_size=4, image_size=32, context_length=16, seed=seed, num_batches=3,
+              correlated=correlated, num_classes=8, rank=rank, world_size=world)
+    want, got = JSyntheticClipData(**kw), SyntheticClipData(**kw)
+    for index in (0, 2):
+        w, g = want.batch(index), got.batch(index)
+        assert set(g) == set(w) == {"image", "tokens", "pad_mask"}
+        for k in w:
+            assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), (index, k)
+    assert [b["tokens"].tolist() for b in got.batches(1)] == [
+        b["tokens"].tolist() for b in list(want)[1:]]
+
+
+def test_synthetic_declip_extras_raise():
+    for kw in ({"two_views": True}, {"mask_type": "MLM"}):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+            SyntheticClipData(batch_size=2, image_size=32, context_length=16, **kw)
+
+
+# -- (b) the temperature decay -------------------------------------------------------
+@pytest.mark.parametrize("t_decay", [
+    {"org_t": 100, "sd_T_decay_iter": 4, "sd_T_decay_w": 0.5, "sd_T_min": 1},
+    {"org_t": 1000, "sd_T_decay_iter": 2700, "sd_T_decay_w": 1, "sd_T_min": 0.01},
+    {"org_t": 1000, "sd_T_decay_iter": 4, "sd_T_decay_w": 0.5, "sd_T_min": 0.01},
+    None,
+])
+def test_fdt_temperature_matches_jax(t_decay):
+    """Exactly JAX's T on both sides of every decay boundary, at the floor,
+    and the model's default with no ``t_decay``."""
+    steps = list(range(0, 40)) + [2699, 2700, 2701, 5400, 80000]
+    cfg_j = jconfig.Config(t_decay) if t_decay else None
+    cfg_p = pconfig.Config(t_decay) if t_decay else None
+    for step in steps:
+        assert fdt_temperature(step, cfg_p, 125.0) == j_fdt_temperature(step, cfg_j, 125.0), step
+
+
+# -- (c) config, meters, metrics sink --------------------------------------------------
+@pytest.mark.parametrize("path", sorted((REPO / "configs").glob("*.yaml")),
+                         ids=lambda p: p.name)
+def test_load_config_matches_jax(path):
+    """Every shipped config parses to the same tree as JAX's ``to_dict()``."""
+    got, want = pconfig.load_config(str(path)), jconfig.load_config(str(path))
+    assert got.to_dict() == want.to_dict()
+    assert got.model.type == want.model.type
+
+
+def test_merge_overrides_and_meters_match_jax():
+    """Dotted overrides create and replace nodes as JAX's do; the windowed
+    and running meters give JAX's averages exactly."""
+    over = {"data.train.batch_size": 64, "new.block.key": [1, 2], "model.type": "clip_vitb32"}
+    got = pconfig.merge_overrides(pconfig.load_config(str(CONFIGS["clip"])), over)
+    want = jconfig.merge_overrides(jconfig.load_config(str(CONFIGS["clip"])), over)
+    assert got.to_dict() == want.to_dict() and got.new.block.key == [1, 2]
+    rng = np.random.default_rng(0)
+    vals = rng.standard_normal(23).tolist()
+    for window in (0, 1, 5):
+        p, j = AverageMeter(window), JAverageMeter(window)
+        for i, v in enumerate(vals):
+            p.update(v, n=1 + i % 3)
+            j.update(v, n=1 + i % 3)
+            assert (p.val, p.avg, p.count) == (j.val, j.avg, j.count)
+
+
+def test_metrics_writer_takes_tensors(tmp_path):
+    """0-d and one-element tensors become numbers in ``metrics.jsonl``."""
+    w = MetricsWriter(str(tmp_path / "m.jsonl"))
+    w.log({"loss": torch.tensor(1.5), "acc": torch.tensor([2.0]), "lr": 1e-3,
+           "n": np.float32(0.25), "name": "x"}, step=3)
+    w.close()
+    rec = read_metrics(tmp_path / "m.jsonl")[0]
+    assert {k: rec[k] for k in ("step", "loss", "acc", "lr", "n", "name")} == {
+        "step": 3, "loss": 1.5, "acc": 2.0, "lr": 1e-3, "n": 0.25, "name": "x"}
+
+
+# -- (d) whole runs without IL -------------------------------------------------------
+@pytest.mark.parametrize("name", ["clip_fdt", "clip"])
+def test_solver_matches_jax(runs, name):
+    """All the config's steps (12 CLIP-FDT, 6 CLIP) with ``reset.enable: false``.
+
+    Forced (each step from JAX's state before it): the port's loop gives JAX's
+    batch bit for bit and JAX's T exactly; lr within rtol 1e-6 plus
+    ``LR_ATOL``; loss within ``FORCED_LOSS_ATOL``; AdamW counts exact; and
+    after every step the params follow ``test_train_step_matches_jax``'s rule for
+    that step's lr: elements whose JAX mu is within 1e-5 of its leaf's
+    largest |mu| (and not 0 on both sides) within 2 lr, every other element
+    within 5e-2 lr, plus 1e-7 for fp32 rounding. Free: the loss within
+    ``FREE_LOSS_ATOL``, the same lr and T. ``metrics.jsonl`` has the same
+    keys at the same steps on both sides."""
+    r = runs(name, False)
+    steps = {"clip_fdt": 12, "clip": 6}[name]
+    assert len(r.jax) == len(r.forced) == len(r.free) == steps
+    for i, (j, f, g) in enumerate(zip(r.jax, r.forced, r.free), start=1):
+        assert f["same_batch"], i
+        assert f["T"] == j["T"] == g["T"], i
+        np.testing.assert_allclose([f["lr"], g["lr"]], j["lr"], rtol=1e-6, atol=LR_ATOL)
+        assert abs(f["loss"] - j["loss"]) <= FORCED_LOSS_ATOL, (i, f["loss"], j["loss"])
+        assert f["param_err_over_tol"] <= 1.0, (i, f["param_err_over_tol"])
+        assert f["counts_equal"], i
+        assert abs(g["loss"] - j["loss"]) <= FREE_LOSS_ATOL[name], (i, g["loss"], j["loss"])
+        assert not g["hold"] and g["trainable"] == j["trainable"], i
+    if name == "clip_fdt":
+        assert [x["T"] for x in r.jax[2:5]] == [100.0, 50.0, 50.0]
+    assert [m["step"] for m in r.port_metrics] == [m["step"] for m in r.jax_metrics]
+    assert [sorted(m) for m in r.port_metrics] == [sorted(m) for m in r.jax_metrics]
+    assert r.jax_il == r.port_il == []
+
+
+# -- (e) the IL schedule ---------------------------------------------------------------
+def test_solver_il_matches_jax(runs):
+    """CLIP-FDT with IL on. Forced: every step as in (d) (the forcing carries
+    JAX's redrawn text tower into the port); the trainable and hold flags
+    after steps 8, 10 and 12 (every step, in fact) equal JAX's. Free: losses
+    of steps 1-8 as in (d) (the same random streams until the reset), flags
+    equal JAX's after every step, and the IL log lines on the same steps
+    (smooth end at 6 and 10, reset at 8), in the log and in ``log.txt``. The
+    reset redraws the same leaves as JAX's and zeroes their moments and
+    counts; in steps 9-10 the codebook stays bit-equal to its step-8 snapshot
+    and the vision tower does not move; at step 11 the codebook trains
+    again."""
+    r = runs("clip_fdt", True)
+    assert len(r.jax) == len(r.forced) == len(r.free) == 12
+    for i, (j, f, g) in enumerate(zip(r.jax, r.forced, r.free), start=1):
+        assert f["same_batch"] and f["T"] == j["T"] == g["T"], i
+        np.testing.assert_allclose([f["lr"], g["lr"]], j["lr"], rtol=1e-6, atol=LR_ATOL)
+        assert abs(f["loss"] - j["loss"]) <= FORCED_LOSS_ATOL, (i, f["loss"], j["loss"])
+        assert f["param_err_over_tol"] <= 1.0 and f["counts_equal"], i
+        for got in (f, g):
+            assert got["hold"] == j["hold"] and got["trainable"] == j["trainable"], i
+        if i <= 8:
+            assert abs(g["loss"] - j["loss"]) <= FREE_LOSS_ATOL["clip_fdt"], i
+    assert [j["hold"] for j in r.jax] == [False] * 7 + [True, True, False, False, False]
+    assert not r.jax[7]["trainable"]["visual.proj"] and r.jax[9]["trainable"]["visual.proj"]
+    want_il = [(6, "smooth end"), (8, "reset"), (10, "smooth end")]
+    assert r.jax_il == r.port_il == r.port_log_il == want_il
+    assert r.redrawn_port == r.redrawn_jax
+    assert r.redrawn_port and all(n.startswith(TEXT_ROOTS) for n in r.redrawn_port)
+    assert r.hold_checks[8]["moments_zeroed"]
+    for step in (9, 10):
+        assert r.hold_checks[step] == {"codebook_at_snapshot": True, "vision_unmoved": True}
+    assert r.hold_checks[11]["codebook_moved"]
+    assert [m["step"] for m in r.port_metrics] == list(range(1, 13))
+    assert [sorted(m) for m in r.port_metrics] == [sorted(m) for m in r.jax_metrics]
+
+
+# -- (f) resume ---------------------------------------------------------------------------
+def _losses(s):
+    out = []
+    step_fn = s.train_step
+
+    def spy(state, batch, temperature):
+        m = step_fn(state, batch, temperature)
+        out.append(m["loss"].item())
+        return m
+
+    s.train_step = spy
+    return out
+
+
+def test_resume_is_bit_for_bit(tmp_path):
+    """12 straight steps (IL on, saves at 9 and 12) against 9 + a resume from
+    ``ckpt_9`` (inside the codebook hold), by path and by ``ckpt_path="auto"``:
+    the losses of steps 10-12 and the final params are bit for bit the
+    straight run's, and so are the optimizer and IL state. A resume from
+    ``ckpt_12`` (past ``total_step``) takes no step."""
+    a = port_solver("clip_fdt", True, tmp_path / "a")
+    a.config.saver["save_freq"] = 9
+    losses_a = _losses(a)
+    a.train()
+    names = sorted(os.listdir(a.save_path))
+    assert names == ["ckpt_12.pth.tar", "ckpt_9.pth.tar"]
+    ckpt_9 = os.path.join(a.save_path, "ckpt_9.pth.tar")
+    assert ckpt.find_last_checkpoint(a.save_path).endswith("ckpt_12.pth.tar")
+    final = {n: p.detach().clone() for n, p in a.params.items()}
+
+    auto = port_solver("clip_fdt", True, tmp_path / "c", debug=True)
+    shutil.copy(ckpt_9, auto.save_path)
+    resumed = [port_solver("clip_fdt", True, tmp_path / "b", ckpt_path=ckpt_9),
+               port_solver("clip_fdt", True, tmp_path / "c", ckpt_path="auto")]
+    for b in resumed:
+        assert b._last_iter == 9 and b.state.hold_codebook and not b.state.trainable["visual.proj"]
+        losses_b = _losses(b)
+        with captured("ilvlm_torch") as lines:
+            b.train()
+        assert any("skipping the first 9 batches" in line for line in lines)
+        assert losses_b == losses_a[9:], (losses_b, losses_a[9:])
+        for n, p in b.params.items():
+            assert torch.equal(p, final[n]), n
+        for key in ("mu", "nu"):
+            assert all(torch.equal(b.state.opt_state[key][n], a.state.opt_state[key][n])
+                       for n in final)
+        assert b.state.opt_state["count"] == a.state.opt_state["count"]
+        assert b.state.trainable == a.state.trainable and not b.state.hold_codebook
+        assert torch.equal(b.state.stored_codebook, a.state.stored_codebook)
+        assert b.state.step == 12
+
+    done = port_solver("clip_fdt", True, tmp_path / "d",
+                       ckpt_path=os.path.join(a.save_path, "ckpt_12.pth.tar"))
+    calls = _losses(done)
+    done.train()
+    assert calls == [] and done.state.step == 12
+    assert all(torch.equal(p, final[n]) for n, p in done.params.items())
+
+
+def test_k_times_archive_and_soup(tmp_path):
+    """``_k_times`` copies every ``k_times_every`` steps; the soup is the
+    fp64 mean of the checkpoints' weights."""
+    s = port_solver("clip", None, tmp_path)
+    paths = []
+    for step in (1, 2, 4):
+        with torch.no_grad():
+            s.params["logit_scale"].fill_(float(step))
+        paths.append(ckpt.save_checkpoint(s.save_path, s.model, s.state, step, k_times_every=2,
+                                          use_async=step == 4))
+    ckpt.wait_for_saves()
+    assert sorted(os.listdir(s.save_path + "_k_times")) == ["ckpt_2.pth.tar", "ckpt_4.pth.tar"]
+    soup = ckpt.restore_params_soup(paths)
+    assert soup["logit_scale"].item() == pytest.approx(7.0 / 3.0)
+    assert set(soup) == set(s.params) and all(v.dtype == torch.float32 for v in soup.values())
+
+
+# -- (g) the checkpoint format ------------------------------------------------------------
+@pytest.mark.parametrize("name", ["clip_fdt", "clip"])
+def test_jax_reads_port_checkpoint(runs, name, tmp_path):
+    """The JAX ``load_reference_checkpoint`` of a port ``ckpt_*.pth.tar`` gives
+    exactly (fp32) the JAX params the port's weights were bridged from."""
+    init = runs(name, False).init
+    s = port_solver(name, False, tmp_path, init)
+    path = ckpt.save_checkpoint(s.save_path, s.model, s.state, 3)
+    assert os.path.basename(path) == "ckpt_3.pth.tar"
+    want = traverse_util.flatten_dict(init)
+    got = traverse_util.flatten_dict(load_reference_checkpoint(path))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == np.float32 and np.array_equal(got[k], np.asarray(v)), k
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    assert set(raw) == {"model", "optimizer", "last_iter"} and raw["last_iter"] == 3
+    assert set(raw["optimizer"]) == {"mu", "nu", "count", "trainable", "stored_codebook",
+                                     "hold_codebook", "ema_buffer", "ema_clip_count"}
+
+
+def test_reference_layout_checkpoint_loads(runs, tmp_path):
+    """A reference-style ``.pth.tar`` (DDP's ``module.`` prefixes, torch's own
+    AdamW state) loads into the port strictly; its ``last_iter`` becomes the
+    step and the optimizer state stays fresh. A missing key fails."""
+    init = runs("clip_fdt", False).init
+    src = port_solver("clip_fdt", False, tmp_path / "src", init)
+    sd = {"module." + k: v.clone() for k, v in src.model.state_dict().items()}
+    path = str(tmp_path / "ref.pth.tar")
+    torch.save({"model": sd, "optimizer": {"state": {}, "param_groups": [{"lr": 1e-3}]},
+                "last_iter": 5}, path)
+    dst = port_solver("clip_fdt", False, tmp_path / "dst", seed=1)
+    assert not torch.equal(dst.params["space_dict"], src.params["space_dict"])
+    ckpt.restore_checkpoint(path, dst.model, dst.state)
+    assert all(torch.equal(p, src.params[n]) for n, p in dst.params.items())
+    assert dst.state.step == 5 and not any(dst.state.opt_state["count"].values())
+    del sd["module.space_dict"]
+    torch.save({"model": sd}, path)
+    with pytest.raises(RuntimeError, match="space_dict"):
+        ckpt.restore_checkpoint(path, dst.model, dst.state)
+
+
+# -- (h) modify_state -----------------------------------------------------------------
+@pytest.mark.parametrize("ignore", [
+    {"key": ["optimizer"]}, {"key": ["last_iter"]}, {"key": ["ema"]},
+    {"model": ["space_dict", "visual"]},
+    {"key": ["optimizer", "last_iter", "ema"], "model": ["txt_query"]},
+], ids=["optimizer", "last_iter", "ema", "model", "all"])
+def test_modify_state_matches_jax(runs, ignore, tmp_path):
+    """Each ``saver.pretrain.ignore`` entry gives what JAX's ``modify_state``
+    gives (params, moments, counts, step, EMA buffers; exact), and the
+    Solver's ``saver.pretrain`` path applies it."""
+    init = runs("clip_fdt", False).init
+    rng = np.random.default_rng(2)
+    other = jax.tree.map(lambda a: np.asarray(a) + rng.standard_normal(a.shape).astype(np.float32),
+                         init)
+    noisy = lambda tree: jax.tree.map(  # noqa: E731
+        lambda a: rng.standard_normal(a.shape).astype(np.float32), tree)
+    opt = {"mu": noisy(init), "nu": jax.tree.map(np.abs, noisy(init)),
+           "count": jax.tree.map(lambda a: np.float32(3.0), joptim.adamw_init(init)["count"])}
+    restored = JTrainState.create(init, opt, joptim.trainable_mask_tree(init),
+                                  init["space_dict"]).replace(
+        step=jnp.asarray(5, jnp.int32), ema_buffer=jnp.float32(4.0),
+        ema_clip_count=jnp.float32(2.0))
+    template = JTrainState.create(other, joptim.adamw_init(other),
+                                  joptim.trainable_mask_tree(other), other["space_dict"])
+    want = jax.device_get(jckpt.modify_state(restored, template, ignore))
+
+    src = port_solver("clip_fdt", False, tmp_path / "src", init)
+    force(src, jax.device_get(restored))
+    saved = ckpt.checkpoint_dict(src.model, src.state, src.state.step)
+    dst = port_solver("clip_fdt", False, tmp_path / "dst", other)
+    ckpt.restore_checkpoint(ckpt.modify_state(saved, dst.model, dst.state, ignore),
+                            dst.model, dst.state)
+    for n, v in bridged(want.params).items():
+        assert np.array_equal(_np(dst.params[n]), v), n
+    for key in ("mu", "nu"):
+        for n, v in bridged(want.opt_state[key]).items():
+            assert np.array_equal(_np(dst.state.opt_state[key][n]), v), (key, n)
+    assert dst.state.opt_state["count"] == {
+        n: float(c) for n, c in bridged(want.opt_state["count"], LAYERS).items()}
+    assert dst.state.step == int(want.step)
+    assert (dst.state.ema_buffer.item(), dst.state.ema_clip_count.item()) == (
+        float(want.ema_buffer), float(want.ema_clip_count))
+    with pytest.raises(KeyError, match="no param subtree"):
+        ckpt.modify_state(saved, dst.model, dst.state, {"model": ["nope"]})
+
+    path = ckpt.save_checkpoint(str(tmp_path / "pre"), src.model, src.state, src.state.step)
+    cfg = _config("clip_fdt", False)
+    cfg.saver["pretrain"] = {"path": path, "ignore": ignore}
+    s = Solver(cfg, output_path=str(tmp_path / "ft"), device="cpu")
+    assert s._last_iter == int(want.step)
+    if "model" not in ignore:  # then every param comes from the checkpoint
+        assert all(np.array_equal(_np(p), src.model.state_dict()[n].numpy())
+                   for n, p in s.params.items())
+
+
+# -- (i) the crash detector -------------------------------------------------------------
+def _crash_losses(n):
+    losses = [2.0 + 0.01 * np.sin(i) for i in range(n)]
+    losses[49] = 3.0   # step 50: a jump before step 100 is not reported
+    losses[106] = 3.0  # step 107: reported
+    return losses
+
+
+def test_crash_detector_matches_jax(tmp_path):
+    """With both Solvers' ``train_step`` stubbed to return the same loss
+    sequence (a jump at step 50 and one at step 107, print_freq 8 so the
+    steps wait in the pending list), the ``[CRASH]`` line fires on the same
+    steps: 107 only (the detector starts after step 100)."""
+    losses = _crash_losses(120)
+    found = {}
+    for side in ("jax", "port"):
+        loader = jconfig.load_config if side == "jax" else pconfig.load_config
+        cfg = _config("clip", None, loader, print_freq=8)
+        cfg.data.train["num_batches"] = 120
+        cfg.lr_scheduler.kwargs["max_iter"] = 120
+        if side == "jax":
+            s = JSolver(cfg, output_path=str(tmp_path / side), mesh=create_mesh(1), debug=True)
+            f32 = jnp.float32
+        else:
+            s = Solver(cfg, output_path=str(tmp_path / side), device="cpu", debug=True)
+            f32 = torch.tensor
+        calls = iter(losses)
+
+        def stub(state, batch, temperature, f32=f32, side=side):
+            m = {"loss": f32(next(calls)), "acc1": f32(0.0), "acc5": f32(0.0),
+                 "lr": 1e-3, "logit_scale": f32(3.0)}
+            return (state, m) if side == "jax" else m
+
+        s.train_step = stub
+        with captured("ilvlm" if side == "jax" else "ilvlm_torch") as lines:
+            s.train()
+        found[side] = [int(re.search(r"at step (\d+)", x).group(1)) for x in lines
+                       if "[CRASH]" in x]
+    assert found["port"] == found["jax"] == [107]
+
+
+# -- (j, k) what is not ported, and no fallback to the CPU --------------------------------
+@pytest.mark.parametrize("case", ["webdataset", "declip", "filip", "slip", "two_views",
+                                  "model_parallel", "lipreg", "bf16_moments"])
+def test_unported_options_raise(case, tmp_path):
+    cfg = _config("clip", None)
+    if case == "webdataset":
+        cfg.data.train["synthetic"] = False
+        cfg.data.train["data_path"] = "data/cc3m/{00000..00331}.tar"
+    elif case in ("declip", "filip", "slip"):
+        cfg["recipe"] = case
+    elif case == "two_views":
+        cfg.data.train["two_views"] = True
+    elif case == "model_parallel":
+        cfg["parallel"] = {"model_parallel": 2}
+    elif case == "lipreg":
+        cfg["lipreg"] = 0.1
+    else:
+        cfg.optimizer["moment_dtype"] = "bfloat16"
+    with pytest.raises(NotImplementedError):
+        Solver(cfg, output_path=str(tmp_path), device="cpu")
+
+
+def test_eval_hooks(tmp_path):
+    """No eval data configured, or a path that does not exist: None, as in
+    JAX. An existing path: the unported eval suite raises."""
+    s = port_solver("clip", None, tmp_path)
+    assert s.evaluate(1) is None and s.imagenet_evaluate(1) is None
+    s.config.data["test"] = {"sc_data_root": str(tmp_path / "missing"),
+                             "imagenet_root": str(tmp_path / "missing")}
+    assert s.evaluate(1) is None and s.imagenet_evaluate(1) is None
+    s.config.data["test"] = {"sc_data_root": str(tmp_path), "imagenet_root": str(tmp_path)}
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        s.evaluate(1)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        s.imagenet_evaluate(1)
+
+
+def test_solver_defaults_to_cuda(tmp_path, monkeypatch):
+    """Without ``device`` the Solver builds on the card, and raises where CUDA
+    is absent instead of training on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Solver(_config("clip", None), output_path=str(tmp_path))
+
+
+def test_reinitialize_draws_as_a_fresh_solver(tmp_path):
+    """``reinitialize(seed)`` re-draws the params in place as a fresh Solver
+    with that seed draws them, and flips the IL schedule."""
+    s = port_solver("clip_fdt", False, tmp_path / "a")
+    before = {n: id(p) for n, p in s.params.items()}
+    s.reinitialize(3, reset_enable=True)
+    fresh = Solver(_config("clip_fdt", True), output_path=str(tmp_path / "b"), device="cpu",
+                   seed=3)
+    assert {n: id(p) for n, p in s.model.named_parameters()} == before
+    assert all(torch.equal(p, fresh.params[n]) for n, p in s.params.items())
+    assert s.reset_cfg.enable and s.lr_schedule(5) == fresh.lr_schedule(5)
+
+
+def test_full_reset_draws_a_fresh_text_tower(tmp_path):
+    """``reset.semantics: full`` takes the reset's text tower from a freshly
+    drawn model (the Solver's ``_fresh_params``): at step 8 every text
+    parameter changes, the embeddings and packed ``in_proj`` too, and no
+    vision parameter does."""
+    cfg = _config("clip_fdt", True)
+    cfg.reset["semantics"] = "full"
+    s = Solver(cfg, output_path=str(tmp_path), device="cpu", debug=True)
+    on_step, changed = s.il.on_step, {}
+
+    def spy(state, step):
+        before = {n: p.detach().clone() for n, p in s.params.items()}
+        state = on_step(state, step)
+        changed[step] = {n for n, p in s.params.items() if not torch.equal(p, before[n])}
+        return state
+
+    s.il.on_step = spy
+    s.train()
+    text = {n for n in s.params if n.startswith(TEXT_ROOTS)}
+    assert changed[8] == text and "encode_text.token_embedding.weight" in text
+    assert all(not changed[i] for i in changed if i != 8)
+
+
+# -- (l) the launcher ------------------------------------------------------------------
+def test_cli_entry_trains_on_the_cpu(tmp_path):
+    """``train_main`` from argv: 2 steps of the tiny CLIP through ``--device cpu``."""
+    import yaml
+
+    cfg = _config("clip", None).to_dict()
+    cfg["lr_scheduler"]["kwargs"]["max_iter"] = 2
+    cfg["data"]["train"]["num_batches"] = 2
+    path = tmp_path / "tiny.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    s = cli_entry.train_main(["--config", str(path), "--output_path", str(tmp_path / "out"),
+                              "--exp_name", "cli", "--device", "cpu", "--seed", "1"])
+    assert s.device.type == "cpu" and s.state.step == 2
+    assert os.path.basename(s.output_path) == "cli_Reset_False_steps_0_smooth_0"
+    assert [m["step"] for m in read_metrics(os.path.join(s.output_path, "metrics.jsonl"))] == [1, 2]
+    with open(os.path.join(s.output_path, "log.txt")) as f:
+        assert "Iter [2/2]" in f.read()
+    assert json.load(open(os.path.join(s.output_path, "config.json"))) == cfg
+
+
+# -- chip_smoke.py's solver phase uses the shipped config -------------------------------
+def test_chip_smoke_solver_config_matches_yaml():
+    """Phase 11's ``grad_clip`` / ``optimizer`` / ``lr_scheduler`` blocks are
+    ``configs/clip_fdt_cc3m.yaml``'s (``max_iter`` aside), and its model is
+    the bench config with both kernels on."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    got = chip_smoke.solver_config()
+    want = pconfig.load_config(str(REPO / "configs" / "clip_fdt_cc3m.yaml")).to_dict()
+    for block in ("grad_clip", "optimizer"):
+        assert got[block] == want[block], block
+    sched = {k: v for k, v in got["lr_scheduler"]["kwargs"].items() if k != "max_iter"}
+    assert got["lr_scheduler"]["type"] == want["lr_scheduler"]["type"]
+    assert sched == {k: v for k, v in want["lr_scheduler"]["kwargs"].items() if k != "max_iter"}
+    assert got["lr_scheduler"]["kwargs"]["max_iter"] == 12
+    assert got["model"] == chip_smoke.model_config(fused=True)
+    assert got["data"]["train"] == {"synthetic": True, "batch_size": 256, "num_batches": 12,
+                                    "epoch": 1}
