@@ -87,13 +87,34 @@ Then the CLIP models are freed and the port's own training loop runs:
    images are drawn on the host), the checkpoint's size, its save and
    restore seconds, and whether PyYAML imports here.
 
-Every driven phase (4, 4b, 6, 7, 9, 10, 11) also resets the plain-route counters
+Then phase 11's models are freed and the data pipeline runs:
+
+12. the pipeline: :func:`pipeline_config` (phase 11's model, ``grad_clip`` and
+   ``optimizer``; the CC3M ``t_decay``, ``lr_scheduler`` with ``max_iter`` 8
+   and ``data.train`` block, pointed at 5 shards of 512 224-px JPEGs written
+   by the port's ``tools/make_train_shards.py`` into a temporary directory,
+   8 of whose captions are long enough for the ctx-77 bucket; MOCOV2_single,
+   context buckets [32, 77], the uint8 wire; no IL; saves at 5 and 8). Run A
+   trains 8 steps through the native augment and ``prefetch_to_device``
+   (counters reset just before ``train()``: 8 x the train step's launches,
+   0 plain routes, both contexts taken, no sample on the PIL tier, the first
+   batch normalized on the card within 1 fp32 ulp of the host float wire);
+   ``encode_images`` of 256 PIL images from the shards (ONECROP) with the
+   bf16 serving cast must equal the uncast encoder's bit for bit (12 K2-fwd,
+   1 K1-fwd); run B resumes from ``ckpt_5`` and must repeat run A's steps 6-8
+   and final parameters bit for bit. It prints Pillow's version, the native
+   build, per-step data and step host times (fenced on the loss; the host's
+   decode sets them, so they are not throughput figures), the device memory
+   and the pinned and pageable copy times of one uint8 batch. Without Pillow
+   it says so and runs the same checks on synthetic data and uint8 arrays.
+
+Every driven phase (4, 4b, 6, 7, 9, 10, 11, 12) also resets the plain-route counters
 (``attention_route.plain_routes``, ``codebook_route.plain_routes``: a kernel
 knob that got the plain path) just before and requires them at 0 just
 after, so the main path never slips onto the plain route unseen.
 
 Any failure exits non-zero. The line before the last is the kernels JSON
-(each kernel's train-step launches, its launches in phase 11's solver run,
+(each kernel's train-step launches, its launches in phase 11's and phase 12's runs,
 error, times, bound and library time at its first shape),
 the last ``{"ok": true, "device": {...}}``. All numbers also go to
 ``build/chip_smoke.json`` (git-ignored).
@@ -102,6 +123,7 @@ from __future__ import annotations
 
 import gc
 import importlib.util
+import itertools
 import json
 import os
 import re
@@ -1086,6 +1108,291 @@ def solver_phase(dev, counted, report):
     return launches
 
 
+# -- phase 12: the data pipeline --------------------------------------------------
+PIPE_STEPS = 8
+PIPE_SHARDS, PIPE_PER_SHARD = 5, 512
+# captions made 34 tokens long (the class caption four times), past the ctx-32
+# bucket: for seed 0 the 8 steps run at ctx 77, 32, 32, 32, 77, 32, 32, 77
+PIPE_LONG = set(np.random.default_rng(12).choice(PIPE_SHARDS * PIPE_PER_SHARD, 8,
+                                                 replace=False).tolist())
+# configs/clip_fdt_cc3m.yaml's t_decay (T stays at 1000 for 2700 steps)
+CC3M_T_DECAY = {"org_t": 1000, "sd_T_decay_iter": 2700, "sd_T_decay_w": 1, "sd_T_min": 0.01}
+
+
+def long_caption(k: int, caption: str) -> str:
+    return " ".join([caption] * 4) if k in PIPE_LONG else caption
+
+
+def shard_train_block(data_path: str) -> dict:
+    """``configs/clip_fdt_cc3m.yaml``'s ``data.train`` pointed at the phase's
+    shards and cut to their size (the default uint8 wire)."""
+    return {"epoch": 30, "data_path": data_path, "transforms": "MOCOV2_single",
+            "num_samples": PIPE_SHARDS * PIPE_PER_SHARD, "num_shards": PIPE_SHARDS,
+            "workers": 5, "batch_size": BATCH, "context_buckets": [32, 77],
+            "context_buckets_sync": True}
+
+
+def pipeline_config(train: dict) -> dict:
+    """Phase 12's config: phase 11's model, ``grad_clip`` and ``optimizer``,
+    the CC3M ``t_decay`` and ``lr_scheduler`` with ``max_iter`` 8, the data
+    block ``train``, no IL (phase 11 covers it), saves at 5 and 8."""
+    cfg = solver_config()
+    cfg["lr_scheduler"]["kwargs"]["max_iter"] = PIPE_STEPS
+    cfg.update({"t_decay": CC3M_T_DECAY, "data": {"train": train},
+                "saver": {"print_freq": 4, "val_freq": 0, "save_freq": 5},
+                "reset": {"enable": False}})
+    return cfg
+
+
+def within_ulp(a: np.ndarray, b: np.ndarray):
+    """(every element within one fp32 ulp, max |a - b|, elements that differ)."""
+    diff = np.abs(a - b)
+    ulp = np.spacing(np.maximum(np.abs(a), np.abs(b)).astype(np.float32))
+    return bool(np.all(diff <= ulp)), float(diff.max()), int((diff != 0).sum())
+
+
+def copy_times(dev, reps: int = 5) -> dict:
+    """One bs-256 uint8 224-px batch: the host copy into pinned memory (host
+    clock) and the copy to the card from pinned and from pageable memory
+    (CUDA events), each the mean of ``reps``."""
+    x = np.random.default_rng(SEED).integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)
+    src = torch.from_numpy(x)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pinned = src.pin_memory()
+    pin_ms = (time.perf_counter() - t0) / reps * 1e3
+    if dev.type != "cuda":
+        return {"bytes": x.nbytes, "pin_ms": pin_ms, "pinned_h2d_ms": float("nan"),
+                "pageable_h2d_ms": float("nan")}
+    out = {"bytes": x.nbytes, "pin_ms": pin_ms}
+    for name, host in (("pinned_h2d_ms", pinned), ("pageable_h2d_ms", src)):
+        out[name] = cuda_ms(lambda: host.to(dev, non_blocking=True), iters=reps, warmup=1)
+    return out
+
+
+def pipeline_phase(dev, counted, report):
+    """Phase 12: ``Solver.train()`` from JPEG shards (run A, 8 steps) and its
+    resume from ``ckpt_5`` (run B), then ``encode_images`` on PIL images with
+    the bf16 serving cast. Without Pillow, synthetic data through the same
+    prefetcher and the native augment on uint8 arrays. Returns run A's launches."""
+    from iterated_learning_for_vlm_tpu_torch.data import augment as aug
+    from iterated_learning_for_vlm_tpu_torch.data import native
+    from iterated_learning_for_vlm_tpu_torch.data import pipeline as pipe
+    from iterated_learning_for_vlm_tpu_torch.data.shards import iter_tar_samples
+    from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder
+    from iterated_learning_for_vlm_tpu_torch.tools.make_train_shards import write_shards
+    from iterated_learning_for_vlm_tpu_torch.train import solver as solver_mod
+    from iterated_learning_for_vlm_tpu_torch.utils import profiling
+    from iterated_learning_for_vlm_tpu_torch.utils.config import Config
+
+    try:
+        import PIL
+        pillow = PIL.__version__
+    except ImportError:
+        pillow = None
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                         check=False).stdout.split("\n")[0]
+    row = {"pillow": pillow, "native_available": native.available(), "gxx": gxx}
+    log(f"pipeline: Pillow {pillow}; native augment available {row['native_available']} "
+        f"({native.library_path().name}, built by {gxx})")
+    check(row["native_available"], "pipeline: the native augment did not build")
+    tiers = {"native": 0, "pil": 0}
+
+    def counted_tier(name, fn):
+        def call(*args, **kwargs):
+            tiers[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    tier_fns = aug._mocov2_native, aug._mocov2_pil
+    aug._mocov2_native = counted_tier("native", tier_fns[0])
+    aug._mocov2_pil = counted_tier("pil", tier_fns[1])
+    with tempfile.TemporaryDirectory(prefix="ilvlm_pipeline_") as tmp:
+        rng = np.random.default_rng(SEED)
+        if pillow:
+            t0 = time.perf_counter()
+            paths = write_shards(os.path.join(tmp, "shards"), PIPE_SHARDS, PIPE_PER_SHARD,
+                                 caption_fn=long_caption)
+            row["write_shards_s"] = time.perf_counter() - t0
+            train = shard_train_block(os.path.join(tmp, "shards",
+                                                   f"{{00000..{PIPE_SHARDS - 1:05d}}}.tar"))
+            # the host float wire's first batch, from the same shards and seed
+            fcfg = dict(train, wire_dtype="float32", image_size=224, context_length=77)
+            host_first = next(iter(pipe.get_wds_dataset(fcfg, seed=SEED).dataloader))["image"]
+        else:
+            log(json.dumps({"phase12": "no Pillow on this machine: JPEG decode not run"}))
+            train = {"synthetic": True, "batch_size": BATCH, "num_batches": PIPE_STEPS,
+                     "epoch": 1}
+            arrays = [rng.integers(0, 256, (256, 320, 3), dtype=np.uint8) for _ in range(BATCH)]
+            u8 = np.stack([aug.mocov2_single(a, np.random.default_rng(i), out_u8=True)
+                           for i, a in enumerate(arrays)])
+            host_first = np.stack([aug.mocov2_single(a, np.random.default_rng(i))
+                                   for i, a in enumerate(arrays)])
+            staged = next(pipe.prefetch_to_device(iter([{"image": u8}]), dev))["image"]
+        cfg = pipeline_config(train)
+
+        # run A: 8 steps from the shards, fenced on each loss
+        a = solver_mod.Solver(Config(cfg), output_path=os.path.join(tmp, "a"),
+                              exp_name="pipeline", device=dev)
+        rec = {"loss": {}, "ctx": {}, "enter": {}, "exit": {}, "data": []}
+        timer = profiling.StepTimer(warmup=1)
+        step_fn, batches = a.train_step, a._batches
+
+        def timed_batches(epoch, skip=0):  # the loop's wait for each next batch
+            it = batches(epoch, skip)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it, None)
+                if batch is None:
+                    return
+                rec["data"].append(time.perf_counter() - t0)
+                yield batch
+
+        def spy_step(state, batch, temperature):
+            step = state.step + 1
+            rec["enter"][step] = time.perf_counter()
+            rec["ctx"][step] = batch["tokens"].shape[1]
+            if step == 1 and pillow:
+                rec["first_image"] = batch["image"].detach().cpu().numpy()
+            metrics = step_fn(state, batch, temperature)
+            timer.tick(metrics["loss"])
+            rec["exit"][step] = time.perf_counter()
+            rec["loss"][step] = metrics["loss"]
+            return metrics
+
+        a.train_step, a._batches = spy_step, timed_batches
+        sync()
+        if dev.type == "cuda":  # the peak of this run alone
+            torch.cuda.reset_peak_memory_stats(dev)
+        reset_counters(*counted.values())
+        reset_routes()
+        tiers.update(native=0, pil=0)
+        t0 = time.perf_counter()
+        a.train()
+        sync()
+        row["train_a_s"] = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counted.items()}
+        check_routes("pipeline")
+        want = {name: PIPE_STEPS * n for name, n in TRAIN_LAUNCHES.items()}
+        check(launches == want, f"pipeline launches {launches}, expected {want}")
+        losses_a = {s: v.item() for s, v in rec["loss"].items()}
+        check(sorted(losses_a) == list(range(1, PIPE_STEPS + 1))
+              and all(np.isfinite(v) for v in losses_a.values()),
+              f"pipeline losses are not {PIPE_STEPS} finite values: {losses_a}")
+        ctxs = [rec["ctx"][s] for s in sorted(rec["ctx"])]
+        row.update(losses_a=losses_a, ctx=ctxs, tiers=dict(tiers),
+                   step_host_ms=[1e3 * (rec["exit"][s] - rec["enter"][s]) for s in sorted(rec["exit"])],
+                   data_ms=[1e3 * x for x in rec["data"]],
+                   timer=timer.summary(), memory=profiling.device_memory_stats())
+        check(tiers["pil"] == 0 and (tiers["native"] >= PIPE_STEPS * BATCH or not pillow),
+              f"pipeline: augment tiers {tiers}, expected the native tier only")
+        if pillow:
+            check(set(ctxs) == {32, 77}, f"pipeline: batches ran at contexts {ctxs}, "
+                                         "expected both 32 and 77")
+            staged = rec.pop("first_image")
+        else:
+            staged = staged.cpu().numpy()
+        ok, err, differ = within_ulp(staged, host_first)
+        row["normalize"] = {"within_1_ulp": ok, "max_abs_diff": err, "elements_differing": differ}
+        check(ok, f"pipeline: the device normalize is {err} from the host float path")
+        log(f"pipeline: {PIPE_STEPS} steps of Solver.train() at bs{BATCH} from "
+            + (f"{PIPE_SHARDS} JPEG shards x {PIPE_PER_SHARD} (written in "
+               f"{row['write_shards_s']:.1f} s), MOCOV2_single" if pillow else "synthetic data")
+            + f", in {row['train_a_s']:.2f} s; launches {launches}; losses "
+            f"{[round(losses_a[s], 5) for s in sorted(losses_a)]}; contexts {ctxs} "
+            f"(ctx 32: {ctxs.count(32)}, ctx 77: {ctxs.count(77)}); augment tiers {tiers}")
+        log(f"pipeline normalize: the first batch normalized on the device against the host "
+            f"float wire: within 1 fp32 ulp {ok}, max |diff| {err:.3e}, {differ} elements differ")
+        log("pipeline host times (not throughput figures: the host's decode sets them): "
+"data_time (the loop's wait for each batch) ms " + ", ".join(f"{x:.1f}" for x in row["data_ms"])
+            + "; step ms (fenced on the loss) " + ", ".join(f"{x:.1f}" for x in row["step_host_ms"])
+            + f"; StepTimer {row['timer']}")
+        log(f"pipeline device memory: {row['memory']}")
+        row["copy"] = copy_times(dev)
+        log("pipeline copy of one uint8 batch ({bytes} bytes): into pinned host memory "
+            "{pin_ms:.2f} ms (host clock), pinned to the card {pinned_h2d_ms:.3f} ms, "
+            "pageable to the card {pageable_h2d_ms:.3f} ms (CUDA events)".format(**row["copy"]))
+        final = {n: p.detach().cpu() for n, p in a.params.items()}
+        ckpt_5 = os.path.join(a.save_path, "ckpt_5.pth.tar")
+        check(sorted(os.listdir(a.save_path)) == ["ckpt_5.pth.tar", "ckpt_8.pth.tar"],
+              f"pipeline checkpoints {sorted(os.listdir(a.save_path))}")
+
+        # serving: PIL images (or, without Pillow, uint8 arrays) through ONECROP,
+        # with the bf16 serving cast and without it
+        if pillow:
+            images = [pipe._decode_image(x) for x in itertools.islice(iter_tar_samples(paths[0]),
+                                                                      BATCH)]
+        else:
+            images = arrays
+        enc_cast = TorchEncoder(a.model, batch_size=BATCH, num_workers=4,
+                                weight_dtype=torch.bfloat16, sd_temperature=SD_TEMPERATURE)
+        enc = TorchEncoder(a.model, batch_size=BATCH, num_workers=4,
+                           sd_temperature=SD_TEMPERATURE)
+        enc_cast.encode_images(images[:8])  # first call: cuBLAS set-up, outside the count
+        sync()
+        reset_counters(*counted.values())
+        reset_routes()
+        emb_cast = enc_cast.encode_images(images)
+        sync()
+        check_routes("pipeline serving")
+        serve_launches = {name: fn.launches for name, fn in counted.items() if fn.launches}
+        emb = enc.encode_images(images)
+        cast_params = {n: p.dtype for n, p in enc_cast.model.named_parameters()}
+        row["serving"] = {"launches": serve_launches, "bit_for_bit": bool(np.array_equal(
+            emb_cast, emb)), "bf16_params": sum(d == torch.bfloat16 for d in cast_params.values()),
+            "fp32_params": sum(d == torch.float32 for d in cast_params.values())}
+        log(f"pipeline serving: encode_images of {len(images)} "
+            + ("PIL images from the shards" if pillow else "uint8 arrays")
+            + f" (ONECROP, 4 workers) with weight_dtype=bfloat16 "
+            f"({row['serving']['bf16_params']} parameters cast, "
+            f"{row['serving']['fp32_params']} kept fp32): launches {serve_launches}; equal bit "
+            f"for bit to the uncast encoder: {row['serving']['bit_for_bit']}")
+        check(emb.shape == (BATCH, 512) and bool(np.isfinite(emb).all()),
+              "pipeline serving: embeddings are malformed")
+        check(row["serving"]["bit_for_bit"], "pipeline serving: the bf16 cast changed the "
+                                             "embeddings")
+        check(serve_launches == {"tiny_attention_fwd": 12, "codebook_pool_fwd": 1},
+              f"pipeline serving launched {serve_launches}, expected 12 and 1")
+        del enc, enc_cast, a, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # run B: a fresh Solver resumed from ckpt_5 skips 5 batches
+        b = solver_mod.Solver(Config(cfg), output_path=os.path.join(tmp, "b"),
+                              exp_name="pipeline", ckpt_path=ckpt_5, device=dev)
+        check(b._last_iter == 5, "pipeline: the resume lost its step")
+        losses_b, step_b = {}, b.train_step
+
+        def spy_b(state, batch, temperature):
+            metrics = step_b(state, batch, temperature)
+            losses_b[state.step] = metrics["loss"]
+            return metrics
+
+        b.train_step = spy_b
+        reset_routes()
+        b.train()
+        sync()
+        check_routes("pipeline resume")
+        losses_b = {s: v.item() for s, v in losses_b.items()}
+        diffs = {n: (p.detach().cpu() != final[n]).sum().item() for n, p in b.params.items()}
+        rest = list(range(6, PIPE_STEPS + 1))
+        bitwise = (sorted(losses_b) == rest and all(losses_b[s] == losses_a[s] for s in rest)
+                   and not any(diffs.values()))
+        row["resume"] = {"losses_a": [losses_a[s] for s in rest],
+                         "losses_b": [losses_b.get(s) for s in rest], "bit_for_bit": bitwise,
+                         "params_differing": {n: d for n, d in diffs.items() if d}}
+        log(f"pipeline resume from ckpt_5: losses of steps 6-8 {row['resume']['losses_b']} "
+            f"against run A's {row['resume']['losses_a']}; bit for bit: {bitwise}"
+            + ("" if bitwise else f"; parameters differing {row['resume']['params_differing']}"))
+        check(bitwise, "pipeline: the resume from ckpt_5 did not repeat run A bit for bit")
+        del b, final
+        gc.collect()
+        torch.cuda.empty_cache()
+    aug._mocov2_native, aug._mocov2_pil = tier_fns
+    report["pipeline"] = row | {"launches": launches}
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -1338,6 +1645,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     solver_launches = solver_phase(dev, counted, report)
 
+    # 12. the data pipeline, after phase 11's models are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipeline_launches = pipeline_phase(dev, counted, report)
+
     report["seconds_total"] = time.perf_counter() - t_start
     out_dir = REPO / "build"
     out_dir.mkdir(exist_ok=True)
@@ -1358,7 +1670,8 @@ def main() -> int:
                         "max_abs_err": max(r["max_abs_err"] for r in rows),
                         **{key: rows[0][key] for key in ("ms", "plain_ms", "bound_ms",
                                                          "bound_by", "library_ms")},
-                        "shape": rows[0]["case"], "launches_solver": solver_launches[name]})
+                        "shape": rows[0]["case"], "launches_solver": solver_launches[name],
+                        "launches_pipeline": pipeline_launches[name]})
         serving = clip_serve_launches if flash else launches
         if serving.get(name):
             kernels[-1]["launches_serving"] = serving[name]

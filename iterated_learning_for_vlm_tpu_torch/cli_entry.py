@@ -31,6 +31,10 @@ def train_main(argv: Optional[Sequence[str]] = None):
                         help="torch device to train on (default: the CUDA card; "
                              "'cpu' to train on the CPU)")
     args = parser.parse_args(argv)
+    if args.debug:  # a post-mortem debugger on an uncaught exception at a terminal
+        from .utils.debug import install_crash_handler
+
+        install_crash_handler()
 
     from .train.solver import Solver
     from .utils.config import load_config

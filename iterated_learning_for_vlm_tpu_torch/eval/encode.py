@@ -8,46 +8,79 @@ in fp32. CLIP-FDT encodes to its codebook features (``extract_*_sd_ft``),
 CLIP to its tower embeddings (``encode_image``, ``encode_text(...)["embed"]``).
 
 ``image_batch`` and ``text_batch`` take and return device tensors (one fixed
-batch); ``encode_images`` / ``encode_texts_tokens`` take host numpy arrays of
-any length. ``encode_texts`` tokenizes strings with the given tokenizer, or
-with the port's own CLIP tokenizer (``data/tokenizer.py``) on first use.
+batch); ``encode_images`` takes PIL images (``preprocess``: the eval
+transform, ONECROP by default, on ``num_workers`` threads) or a host numpy
+array, ``encode_texts_tokens`` host arrays, of any length. ``encode_texts``
+tokenizes strings with the given tokenizer, or with the port's own CLIP
+tokenizer (``data/tokenizer.py``) on first use.
+
+``weight_dtype=torch.bfloat16`` is the serving cast (JAX
+``serving_cast_params``): a copy of the model whose matmul weights are bf16
+once, instead of at every use.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import copy
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..data.augment import build_common_augmentation
+from ..data.pipeline import pick_context_bucket
+from ..models.layers import LayerNorm
 
-def pick_context_bucket(pad_mask, buckets) -> Optional[int]:
-    """The smallest bucket below the current context that holds every
-    caption, or None (a copy of ``data/pipeline.py:pick_context_bucket``,
-    whose module the port cannot import). Pad-mask convention: 0.0 = real
-    token (incl. EOT), -inf = pad."""
-    pad_mask = np.asarray(pad_mask)
-    max_len = int((pad_mask == 0.0).sum(axis=1).max())
-    ctx = pad_mask.shape[1]
-    for b in sorted(int(x) for x in buckets):
-        if max_len <= b <= ctx:
-            return None if b == ctx else b
-    return None
+# parameters the towers read in fp32 (LayerNorm scales and biases, the logit
+# scale, the FDT codebook): JAX ``eval/encode.py:_CAST_KEEP_FP32``
+_CAST_KEEP_FP32 = ("ln_", "norm", "bn", "batch", "logit_scale", "space_dict",
+                   "running_", "relative_position")
+
+
+def serving_cast(model, dtype=torch.bfloat16):
+    """A copy of ``model`` whose fp32 parameters are cast to ``dtype`` once,
+    except those the towers read in fp32: any whose name holds one of
+    ``_CAST_KEEP_FP32``, and every ``LayerNorm``'s (the query heads' are named
+    ``q_map.0`` / ``q_map.3``). Bit-exact for a model that computes in
+    ``dtype``, whose layers cast each such weight at every use
+    (``models/layers.py:Linear``); ``model`` itself is left as it is."""
+    model_dtype = getattr(model, "dtype", torch.float32)
+    if model_dtype != dtype:
+        raise ValueError(
+            f"weight_dtype={dtype} requires a model computing in that dtype (model dtype is "
+            f"{model_dtype}); build the model with dtype: bfloat16 or drop weight_dtype")
+    cast = copy.deepcopy(model)
+    keep = {f"{m}.{n}" if m else n for m, mod in cast.named_modules()
+            if isinstance(mod, LayerNorm) for n, _ in mod.named_parameters(recurse=False)}
+    with torch.no_grad():
+        for name, p in cast.named_parameters():
+            if (p.dtype == torch.float32 and name not in keep
+                    and not any(k in name.lower() for k in _CAST_KEEP_FP32)):
+                p.data = p.data.to(dtype)
+    return cast
 
 
 class TorchEncoder:
     """Encoder over a CLIP-FDT model (one with an FDT config) or a CLIP model,
     which has no temperature."""
 
-    def __init__(self, model, tokenizer=None, batch_size: int = 64, normalize: bool = True,
-                 text_buckets: Optional[Sequence[int]] = (16, 32),
+    def __init__(self, model, tokenizer=None, batch_size: int = 64,
+                 transform: str = "ONECROP", normalize: bool = True, num_workers: int = 4,
+                 text_buckets: Optional[Sequence[int]] = (16, 32), weight_dtype=None,
                  sd_temperature: Optional[float] = None):
+        if weight_dtype is not None:
+            model = serving_cast(model, weight_dtype)
         self.model = model.eval()
         self.is_fdt = hasattr(model, "fdt_cfg")
         self.device = next(model.parameters()).device
         self.tokenizer = None if tokenizer is None else self._checked(tokenizer)
         self.batch_size = batch_size
         self.normalize = normalize
+        self.num_workers = max(1, int(num_workers))
         self.context_length = model.text_cfg.context_length
+        # the eval transform at the tower's resolution (ONECROP: Resize(256 /
+        # 224 of it) -> CenterCrop), to host float32
+        self.transform = build_common_augmentation(
+            transform, image_size=model.vision_cfg.input_resolution)
         self.text_buckets = tuple(sorted(
             {int(b) for b in (text_buckets or ()) if int(b) < self.context_length}
             | {self.context_length}))
@@ -90,8 +123,24 @@ class TorchEncoder:
             emb = self.model.encode_text(tokens, pad_mask)["embed"]
         return self._finish(emb, normalize)
 
-    def encode_images(self, images: np.ndarray, normalize: Optional[bool] = None) -> np.ndarray:
-        """images: [N, H, W, 3] float array -> [N, E] float32."""
+    def preprocess(self, pil_images: Iterable) -> np.ndarray:
+        """The eval transform of each image, on ``num_workers`` threads (the
+        native augment releases the GIL) -> [N, S, S, 3] float32."""
+        pil_images = list(pil_images)
+        if self.num_workers > 1 and len(pil_images) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
+                arrays = list(pool.map(lambda im: self.transform(im, None), pil_images))
+        else:
+            arrays = [self.transform(im, None) for im in pil_images]
+        return np.stack(arrays).astype(np.float32)
+
+    def encode_images(self, images, normalize: Optional[bool] = None) -> np.ndarray:
+        """images: a sequence of PIL images, or an [N, H, W, 3] float array
+        already transformed -> [N, E] float32."""
+        if not isinstance(images, np.ndarray):
+            images = self.preprocess(images)
         out = []
         bs = self.batch_size
         for i in range(0, len(images), bs):

@@ -10,22 +10,29 @@ The step (``train/step.py``) runs eagerly and updates the model's
 parameters in place; the loop feeds it batches on the solver's device, calls
 the IL controller after each step and keeps each step's metrics as device
 scalars, read to the host only at log boundaries (every 50 and every
-``print_freq`` steps), so the loop adds no per-step device sync.
+``print_freq`` steps), so the loop adds no per-step device sync. Batches
+come from webdataset shards (``data/pipeline.py:get_wds_dataset``: decode,
+MOCOV2 augment, tokenize, context buckets) or from ``data/synthetic.py``, and
+reach the device through ``prefetch_to_device``, which stages the next two
+while the step runs.
 
-Ported so far: the ``clip`` recipe (CLIP and CLIP-FDT) on synthetic data, on
-one device. The webdataset pipeline (ROADMAP.md Queue 1 item 3), the eval
-hooks (item 4), DDP and tensor parallelism (item 5) and the other recipes
-(item 6) raise ``NotImplementedError``.
+Ported so far: the ``clip`` recipe (CLIP and CLIP-FDT), on one device. The
+eval hooks (ROADMAP.md Queue 1 item 4), DDP and tensor parallelism (item 5)
+and the other recipes and their batch extras (item 6) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from typing import Dict, Iterator, Optional
 
 import torch
 
+from ..data.pipeline import get_wds_dataset, prefetch_to_device
 from ..data.synthetic import SyntheticClipData
+from ..data.tokenizer import get_tokenizer
 from ..models import model_entry, resolve_device
 from ..models.layers import init_module_tree
 from ..utils.config import Config
@@ -176,21 +183,30 @@ class Solver:
 
     def _build_data(self):
         dcfg = self.config.data.train
-        if not dcfg.get("synthetic", False):
-            raise NotImplementedError(
-                "the PyTorch package trains on synthetic data only (data.train.synthetic: "
-                "true); the webdataset pipeline is ROADMAP.md Queue 1 item 3")
-        self._synthetic = SyntheticClipData(
-            batch_size=int(dcfg.batch_size),
-            image_size=self.model.vision_cfg.input_resolution,
-            context_length=self.model.text_cfg.context_length,
-            num_batches=int(dcfg.get("num_batches", 100)),
-            correlated=bool(dcfg.get("correlated", False)),
-            num_classes=int(dcfg.get("num_classes", 64)),
-            two_views=bool(dcfg.get("two_views", False)),
-            mask_type=dcfg.get("mask_type"),
-        )
-        self.num_batches_per_epoch = self._synthetic.num_batches
+        if dcfg.get("synthetic", False):
+            self.train_data = None
+            self._synthetic = SyntheticClipData(
+                batch_size=int(dcfg.batch_size),
+                image_size=self.model.vision_cfg.input_resolution,
+                context_length=self.model.text_cfg.context_length,
+                num_batches=int(dcfg.get("num_batches", 100)),
+                correlated=bool(dcfg.get("correlated", False)),
+                num_classes=int(dcfg.get("num_classes", 64)),
+                two_views=bool(dcfg.get("two_views", False)),
+                mask_type=dcfg.get("mask_type"),
+            )
+            self.num_batches_per_epoch = self._synthetic.num_batches
+            return
+        self._synthetic = None
+        # crops and contexts follow the towers unless the config names them
+        # (the reference hard-codes 224)
+        if "image_size" not in dcfg:
+            dcfg["image_size"] = int(self.model.vision_cfg.input_resolution)
+        if "context_length" not in dcfg:
+            dcfg["context_length"] = int(self.model.text_cfg.context_length)
+        self.train_data = get_wds_dataset(dcfg, world_size=self.world_size, rank=0,
+                                          tokenizer=get_tokenizer(), seed=self.seed)
+        self.num_batches_per_epoch = self.train_data.num_batches
 
     def _build_lr_scheduler(self):
         sched_cfg = Config(self.config.lr_scheduler.to_dict())
@@ -250,12 +266,18 @@ class Solver:
 
     # -- loop ----------------------------------------------------------------
     def _batches(self, epoch: int, skip: int = 0) -> Iterator[Dict[str, torch.Tensor]]:
-        """The epoch's batches on the device. A mid-epoch resume starts at
-        batch ``skip``: each synthetic batch is keyed by its index, so the
-        batches from there on are bit for bit those of the run that saved."""
-        for batch in self._synthetic.batches(skip):
-            yield {k: torch.from_numpy(v).to(self.device, non_blocking=True)
-                   for k, v in batch.items()}
+        """The epoch's batches on the device, two staged ahead. A mid-epoch
+        resume starts at batch ``skip`` and gets, bit for bit, the batches the
+        run that saved got from there on: each synthetic batch is keyed by its
+        index (the skipped ones are never drawn), and the shard stream is keyed
+        by (seed, epoch) with its per-sample augment seeds drawn in stream
+        order, so the skipped batches are decoded on the host but never copied."""
+        if self._synthetic is not None:
+            it = self._synthetic.batches(skip)
+        else:
+            self.train_data.set_epoch(epoch)
+            it = itertools.islice(self.train_data.dataloader, skip, None)
+        return prefetch_to_device(it, self.device, size=2)
 
     def train(self):
         # in-flight async checkpoint writes reach the disk even when the loop

@@ -10,6 +10,7 @@ does not have; this file imports no JAX.) Inputs are bf16, the kernels'
 working type. ``chip_smoke.py`` repeats these checks at the full serving
 shapes.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -838,10 +839,11 @@ def test_clip_head_width_32_flash_knob_routes_to_plain(dev):
     _assert_paths_agree(got, _grads_of(plain, batch))
 
 
-def _solver_cfg():
+def _solver_cfg(train=None):
     """A two-layer bf16 CLIP-FDT Solver config with both kernels on (head
-    width 64, codebook depth 64), on synthetic batches of 8 at ctx 20: IL on
-    (reset at step 4, smooth 1), 6 steps, a save at 3 and at 6."""
+    width 64, codebook depth 64), on synthetic batches of 8 at ctx 20 (or the
+    data block ``train``): IL on (reset at step 4, smooth 1), 6 steps, a save
+    at 3 and at 6."""
     model = _small_cfg(True)
     del model["kwargs"]["text_encode"]["vocab_size"]  # the tokenizer's ids
     return {"model": model,
@@ -852,19 +854,21 @@ def _solver_cfg():
             "lr_scheduler": {"type": "Cosine", "kwargs": {
                 "base_lr": 5e-4, "warmup_lr": 5e-3, "min_lr": 0.0, "warmup_steps": 2,
                 "max_iter": 6}},
-            "data": {"train": {"synthetic": True, "batch_size": 8, "num_batches": 6}},
+            "data": {"train": train or {"synthetic": True, "batch_size": 8, "num_batches": 6}},
             "saver": {"print_freq": 1, "save_freq": 3},
             "reset": {"enable": True, "reset_steps": 2, "reset_nums": 3, "smooth_steps": 1}}
 
 
-def _solver_run(tmp_path, name, **kw):
+def _solver_run(tmp_path, name, train=None, contexts=None, **kw):
     from iterated_learning_for_vlm_tpu_torch.train.solver import Solver
     from iterated_learning_for_vlm_tpu_torch.utils.config import Config
 
-    s = Solver(Config(_solver_cfg()), output_path=str(tmp_path / name), **kw)
+    s = Solver(Config(_solver_cfg(train)), output_path=str(tmp_path / name), **kw)
     losses, step_fn = {}, s.train_step
 
     def spy(state, batch, temperature):
+        if contexts is not None:
+            contexts.append(batch["tokens"].shape[1])
         m = step_fn(state, batch, temperature)
         losses[state.step] = m["loss"]
         return m
@@ -889,6 +893,79 @@ def test_solver_kernels_and_resume(dev, tmp_path):
     assert all(torch.isfinite(torch.tensor(v)) for v in losses_a.values())
     ckpt_3 = a.save_path + "/ckpt_3.pth.tar"
     b, losses_b, counts_b = _solver_run(tmp_path, "b", ckpt_path=ckpt_3)
+    assert counts_b == ([12, 12, 6, 6, 6, 0, 0], 0, 0)
+    assert losses_b == {s: losses_a[s] for s in (4, 5, 6)}
+    for n, p in b.params.items():
+        assert torch.equal(p, a.params[n]), n
+
+
+# -- the data pipeline's device half ----------------------------------------------
+def _host_batches(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"image": rng.integers(0, 256, (16, 32, 32, 3), dtype=np.uint8),
+             "tokens": rng.integers(0, 49408, (16, 20)).astype(np.int32),
+             "pad_mask": np.where(rng.random((16, 20)) < 0.5, 0.0, -np.inf).astype(np.float32)}
+            for _ in range(n)]
+
+
+def test_prefetch_to_device_pinned_copies(dev):
+    """``prefetch_to_device`` on the card gives each batch equal to a
+    blocking copy of its arrays (the uint8 image normalized on the card), and
+    a batch the consumer holds stays intact while the producer stages the
+    next ones and the allocator is busy."""
+    from iterated_learning_for_vlm_tpu_torch.data.pipeline import (
+        normalize_device_batch, prefetch_to_device,
+    )
+
+    host = _host_batches(6)
+    held = []
+    for i, got in enumerate(prefetch_to_device(iter(host), dev, size=2)):
+        want = normalize_device_batch({k: torch.from_numpy(v).to(dev) for k, v in host[i].items()})
+        assert set(got) == set(want)
+        for k in want:
+            assert got[k].device.type == "cuda" and got[k].dtype == want[k].dtype, k
+            assert torch.equal(got[k], want[k]), (i, k)
+        held.append((i, got))
+        torch.randn(1 << 22, device=dev)  # churn the caching allocator
+    torch.cuda.synchronize()
+    for i, got in held:
+        want = normalize_device_batch({k: torch.from_numpy(v).to(dev) for k, v in host[i].items()})
+        assert all(torch.equal(got[k], want[k]) for k in want), i
+
+
+def test_device_normalize_within_one_ulp_of_host(dev):
+    """The uint8 wire normalized on the card against the host float path
+    (``x * _NORM_SCALE + _NORM_OFFSET`` in numpy fp32): within one fp32 ulp."""
+    from iterated_learning_for_vlm_tpu_torch.data.augment import _NORM_OFFSET, _NORM_SCALE
+    from iterated_learning_for_vlm_tpu_torch.data.pipeline import normalize_device_batch
+
+    x = np.arange(256, dtype=np.uint8).repeat(3).reshape(1, 16, 16, 3)
+    host = x.astype(np.float32) * _NORM_SCALE + _NORM_OFFSET
+    got = normalize_device_batch({"image": torch.from_numpy(x).to(dev)})["image"].cpu().numpy()
+    assert got.dtype == np.float32
+    assert np.all(np.abs(got - host) <= np.spacing(np.abs(host)))
+
+
+def test_solver_from_shards_kernels_and_resume(dev, tmp_path):
+    """The two-layer CLIP-FDT ``Solver`` on the card over 32-px JPEG shards
+    (MOCOV2_single, the uint8 wire, context buckets [12, 20]): 6 steps with a
+    save at 3 launch K2-fwd/bwd 4 times a step and K1-fwd, dq and dsd twice,
+    with no plain route, at both contexts; a fresh Solver resumed from
+    ``ckpt_3`` gives steps 4-6's losses and the final parameters bit for bit."""
+    from iterated_learning_for_vlm_tpu_torch.tools.make_train_shards import write_shards
+
+    write_shards(str(tmp_path / "shards"), 3, 24, image_size=32, num_classes=16,
+                 caption_fn=lambda k, c: c + " " + c if k % 7 == 3 else c)
+    train = {"data_path": str(tmp_path / "shards" / "{00000..00002}.tar"), "batch_size": 8,
+             "num_samples": 72, "workers": 2, "transforms": "MOCOV2_single",
+             "context_buckets": [12, 20]}
+    contexts = []
+    a, losses_a, counts = _solver_run(tmp_path, "a", train, contexts)
+    assert counts == ([24, 24, 12, 12, 12, 0, 0], 0, 0)
+    assert sorted(losses_a) == [1, 2, 3, 4, 5, 6] and set(contexts) == {12, 20}, contexts
+    assert all(np.isfinite(v) for v in losses_a.values())
+    b, losses_b, counts_b = _solver_run(tmp_path, "b", train, ckpt_path=a.save_path
+                                        + "/ckpt_3.pth.tar")
     assert counts_b == ([12, 12, 6, 6, 6, 0, 0], 0, 0)
     assert losses_b == {s: losses_a[s] for s in (4, 5, 6)}
     for n, p in b.params.items():

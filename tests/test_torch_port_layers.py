@@ -513,7 +513,8 @@ def test_port_imports_no_jax():
     """The port runs where jax is not installed. No source of the port or
     ``chip_smoke.py`` imports jax, flax or the JAX package anywhere; and a
     fresh interpreter that imports its models, ops, encoder and training
-    modules, the Solver and its launcher, and encodes captions through
+    modules, the Solver and its launcher, the data pipeline and the host
+    utilities, runs the native augment, and encodes captions through
     ``TorchEncoder.encode_texts`` with no tokenizer given (the port's own,
     found on first use), has loaded none of them, nor ``regex``, nor ``yaml``
     (only ``load_config`` reads YAML)."""
@@ -536,6 +537,17 @@ def test_port_imports_no_jax():
         "import iterated_learning_for_vlm_tpu_torch.train.solver\n"
         "import iterated_learning_for_vlm_tpu_torch.cli_entry\n"
         "import iterated_learning_for_vlm_tpu_torch.utils\n"
+        "import iterated_learning_for_vlm_tpu_torch.utils.debug\n"
+        "import iterated_learning_for_vlm_tpu_torch.utils.misc\n"
+        "import iterated_learning_for_vlm_tpu_torch.utils.profiling\n"
+        "import iterated_learning_for_vlm_tpu_torch.data.auto_augment\n"
+        "import iterated_learning_for_vlm_tpu_torch.data.pipeline\n"
+        "import iterated_learning_for_vlm_tpu_torch.data.samplers\n"
+        "import iterated_learning_for_vlm_tpu_torch.tools.make_train_shards\n"
+        "from iterated_learning_for_vlm_tpu_torch.data import augment, native\n"
+        "assert native.available()\n"
+        "x = np.zeros((40, 50, 3), np.uint8)\n"
+        "assert augment.mocov2_single(x, np.random.default_rng(0), size=32).shape == (32, 32, 3)\n"
         "from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder\n"
         "from iterated_learning_for_vlm_tpu_torch.models import model_entry\n"
         "cfg = {'type': 'clip_fdt_vitb32', 'kwargs': {\n"

@@ -57,6 +57,7 @@ from iterated_learning_for_vlm_tpu.utils import config as jconfig
 from iterated_learning_for_vlm_tpu.utils.meters import AverageMeter as JAverageMeter
 from iterated_learning_for_vlm_tpu_torch import cli_entry
 from iterated_learning_for_vlm_tpu_torch.data.synthetic import SyntheticClipData
+from iterated_learning_for_vlm_tpu_torch.tools.make_train_shards import write_shards
 from iterated_learning_for_vlm_tpu_torch.tools.torch_checkpoint import (
     load_jax_params, state_dict_from_jax_params,
 )
@@ -87,10 +88,13 @@ TEXT_ROOTS = ("encode_text.", "txt_query_model.")
 VISION_ROOTS = ("visual.", "img_query_model.")
 
 
-def _config(name, reset=None, loader=pconfig.load_config, **saver):
+def _config(name, reset=None, loader=pconfig.load_config, train=None, **saver):
+    """A tiny config; ``train`` replaces its synthetic ``data.train`` block."""
     cfg = loader(str(CONFIGS[name]))
     if reset is not None:
         cfg.reset["enable"] = reset
+    if train is not None:
+        cfg.data["train"] = dict(train)
     cfg.saver.update(saver)
     return cfg
 
@@ -133,9 +137,10 @@ def read_metrics(path):
         return [json.loads(line) for line in f]
 
 
-def port_solver(name, reset, out, init=None, **kw):
+def port_solver(name, reset, out, init=None, train=None, **kw):
     """A port Solver on the CPU, from the JAX initial params ``init``."""
-    s = Solver(_config(name, reset), output_path=str(out), exp_name="run", device="cpu", **kw)
+    s = Solver(_config(name, reset, train=train), output_path=str(out), exp_name="run",
+               device="cpu", **kw)
     if init is not None:
         load_jax_params(s.model, init)
         s._build_optimizer()
@@ -172,14 +177,18 @@ class Parity:
     port_log_il: list = field(default_factory=list)
     jax_metrics: list = field(default_factory=list)
     port_metrics: list = field(default_factory=list)
+    jax_batches: list = field(default_factory=list)
+    port_batches: list = field(default_factory=list)
     redrawn_jax: set = field(default_factory=set)
     redrawn_port: set = field(default_factory=set)
     hold_checks: dict = field(default_factory=dict)
 
 
-def _jax_run(name, reset, out, res):
-    js = JSolver(_config(name, reset, jconfig.load_config), output_path=str(out / "jax"),
+def _jax_run(name, reset, out, res, train=None):
+    js = JSolver(_config(name, reset, jconfig.load_config, train), output_path=str(out / "jax"),
                  exp_name="run", mesh=create_mesh(1))
+    if train is not None:
+        res.jax_batches = record_batches(js, lambda v: np.asarray(jax.device_get(v)))
     res.init = jax.device_get(js.params)
     recs = []
     step_fn, on_step = js.train_step, js.il.on_step
@@ -214,8 +223,10 @@ def _jax_run(name, reset, out, res):
     return recs
 
 
-def _forced_run(name, reset, out, res, recs):
-    s = port_solver(name, reset, out / "forced")
+def _forced_run(name, reset, out, res, recs, train=None):
+    s = port_solver(name, reset, out / "forced", train=train)
+    if train is not None:
+        res.port_batches = record_batches(s, _np)
     step_fn, on_step = s.train_step, s.il.on_step
 
     def spy_step(state, batch, temperature):
@@ -243,6 +254,19 @@ def _forced_run(name, reset, out, res, recs):
 
     s.train_step, s.il.on_step = spy_step, spy_il
     s.train()
+
+
+def record_batches(solver, to_np):
+    """Wrap ``solver._batches`` to keep a host copy of every batch it yields."""
+    out, batches = [], solver._batches
+
+    def wrapped(epoch, skip=0):
+        for batch in batches(epoch, skip):
+            out.append({k: to_np(v) for k, v in batch.items()})
+            yield batch
+
+    solver._batches = wrapped
+    return out
 
 
 def _free_run(name, reset, out, res):
@@ -675,14 +699,87 @@ def test_crash_detector_matches_jax(tmp_path):
     assert found["port"] == found["jax"] == [107]
 
 
+# -- (f2) training from webdataset shards ---------------------------------------------------
+def short_captions(k, caption):
+    """Four of five captions cut to their first four words (6 tokens with SOT
+    and EOT, inside an 8-token bucket); the rest keep the class caption."""
+    return caption if k % 5 == 0 else " ".join(caption.split()[:4])
+
+
+@pytest.fixture(scope="module")
+def shard_train(tmp_path_factory):
+    """``data.train`` over 4 x 16 32-px JPEG shards (the port's writer):
+    MOCOV2_single on the uint8 wire, buckets [8, 16], 2 loader threads, 16
+    batches of 4 an epoch."""
+    root = tmp_path_factory.mktemp("shards")
+    write_shards(str(root), 4, 16, image_size=32, num_classes=16, caption_fn=short_captions)
+    return {"data_path": str(root / "{00000..00003}.tar"), "batch_size": 4, "num_samples": 64,
+            "workers": 2, "transforms": "MOCOV2_single", "context_buckets": [8, 16], "epoch": 1}
+
+
+# the uint8 wire's normalize x * scale + offset: JAX's may fuse it into one
+# FMA, the port rounds the product first; within one fp32 ulp of the largest
+# term it can have (255 * scale, at most 4.46)
+NORMALIZE_ATOL = float(np.spacing(np.float32(4.46)))
+
+
+def test_solver_from_shards_matches_jax(shard_train, tmp_path):
+    """The tiny CLIP-FDT, IL off, 12 steps from the shards. Both Solvers get
+    the same batches from ``_batches``: tokens and pad masks equal, the
+    context bucket included (both buckets occur), and the images normalized
+    on each side within ``NORMALIZE_ATOL``. Each port step from JAX's state
+    before it gives JAX's loss within ``FORCED_LOSS_ATOL``, its lr and T, with
+    the params rule of (d)."""
+    res = Parity(init={})
+    recs = _jax_run("clip_fdt", False, tmp_path, res, shard_train)
+    _forced_run("clip_fdt", False, tmp_path, res, recs, shard_train)
+    assert len(res.jax_batches) == len(res.port_batches) == len(res.forced) == 12
+    for i, (g, w) in enumerate(zip(res.port_batches, res.jax_batches)):
+        assert set(g) == set(w) == {"image", "tokens", "pad_mask"}, i
+        for k in ("tokens", "pad_mask"):
+            assert g[k].dtype == w[k].dtype and np.array_equal(g[k], w[k]), (i, k)
+        assert g["image"].dtype == w["image"].dtype == np.float32, i
+        assert g["image"].shape == (4, 32, 32, 3)
+        np.testing.assert_allclose(g["image"], w["image"], rtol=0, atol=NORMALIZE_ATOL)
+    assert {b["tokens"].shape[1] for b in res.port_batches} == {8, 16}
+    for i, (r, f) in enumerate(zip(recs, res.forced), start=1):
+        assert f["T"] == r["T"], i
+        np.testing.assert_allclose(f["lr"], r["lr"], rtol=1e-6, atol=LR_ATOL)
+        assert abs(f["loss"] - r["loss"]) <= FORCED_LOSS_ATOL, (i, f["loss"], r["loss"])
+        assert f["param_err_over_tol"] <= 1.0 and f["counts_equal"], i
+
+
+def test_solver_from_shards_resumes_bit_for_bit(shard_train, tmp_path):
+    """12 straight steps from the shards with a save at 6 (mid-epoch: 16
+    batches an epoch) against a fresh Solver resumed from ``ckpt_6``, which
+    skips 6 batches: steps 7-12's losses, batches and final params are the
+    straight run's bit for bit."""
+    a = port_solver("clip_fdt", False, tmp_path / "a", train=shard_train)
+    a.config.saver["save_freq"] = 6
+    losses_a, batches_a = _losses(a), record_batches(a, _np)
+    a.train()
+    b = port_solver("clip_fdt", False, tmp_path / "b", train=shard_train,
+                    ckpt_path=os.path.join(a.save_path, "ckpt_6.pth.tar"))
+    losses_b, batches_b = _losses(b), record_batches(b, _np)
+    with captured("ilvlm_torch") as lines:
+        b.train()
+    assert any("skipping the first 6 batches" in line for line in lines)
+    assert len(losses_a) == 12 and losses_b == losses_a[6:]
+    for g, w in zip(batches_b, batches_a[6:]):
+        assert all(np.array_equal(g[k], w[k]) for k in w)
+    for n, p in b.params.items():
+        assert torch.equal(p, a.params[n]), n
+
+
 # -- (j, k) what is not ported, and no fallback to the CPU --------------------------------
 @pytest.mark.parametrize("case", ["webdataset", "declip", "filip", "slip", "two_views",
                                   "model_parallel", "lipreg", "bf16_moments"])
 def test_unported_options_raise(case, tmp_path):
     cfg = _config("clip", None)
-    if case == "webdataset":
+    if case == "webdataset":  # shards train; their MLM masking does not yet
         cfg.data.train["synthetic"] = False
         cfg.data.train["data_path"] = "data/cc3m/{00000..00331}.tar"
+        cfg.data.train["mask_type"] = "MLM"
     elif case in ("declip", "filip", "slip"):
         cfg["recipe"] = case
     elif case == "two_views":
@@ -797,3 +894,27 @@ def test_chip_smoke_solver_config_matches_yaml():
     assert got["model"] == chip_smoke.model_config(fused=True)
     assert got["data"]["train"] == {"synthetic": True, "batch_size": 256, "num_batches": 12,
                                     "epoch": 1}
+
+
+def test_chip_smoke_pipeline_config_matches_yaml():
+    """Phase 12's blocks are ``configs/clip_fdt_cc3m.yaml``'s: ``grad_clip``,
+    ``optimizer`` and ``t_decay`` as they are, ``lr_scheduler`` with
+    ``max_iter`` 8, and ``data.train`` with its path and size cut to the
+    phase's 5 shards of 512; IL off, the bench model with both kernels."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    path = "shards/{00000..00004}.tar"
+    got = chip_smoke.pipeline_config(chip_smoke.shard_train_block(path))
+    want = pconfig.load_config(str(REPO / "configs" / "clip_fdt_cc3m.yaml")).to_dict()
+    for block in ("grad_clip", "optimizer", "t_decay"):
+        assert got[block] == want[block], block
+    assert got["lr_scheduler"]["kwargs"] == dict(want["lr_scheduler"]["kwargs"], max_iter=8)
+    assert got["data"]["train"] == dict(want["data"]["train"], data_path=path, num_samples=2560,
+                                        num_shards=5)
+    assert got["model"] == chip_smoke.model_config(fused=True)
+    assert got["reset"] == {"enable": False}
+    assert got["saver"]["save_freq"] == 5 and got["saver"]["print_freq"] == 4
+    assert len(chip_smoke.PIPE_LONG) == 8
