@@ -16,7 +16,8 @@ and depth, bf16, both kernels on, random weights from seed 0),
 2. build: compile the kernels from ``csrc/`` with nvcc;
 3. kernels: each forward kernel against its plain PyTorch version at the
    main-path shapes (K1 also at the text ctx-77 bucket and the ViT-B/16 image
-   tower's T=196), in bf16, max abs error beside the tolerance, and both
+   tower's T=196; K1 and K2 also at the ctx-16 bucket of phase 13's
+   prompts), in bf16, max abs error beside the tolerance, and both
    times (CUDA events, in turns), beside the kernel's bound (the larger of
    its bytes over 3.35 TB/s and its bf16 operations over 989 TFLOP/s) and,
    for attention, the time of ``torch.nn.functional.scaled_dot_product_attention``
@@ -108,14 +109,39 @@ Then phase 11's models are freed and the data pipeline runs:
    and the pinned and pageable copy times of one uint8 batch. Without Pillow
    it says so and runs the same checks on synthetic data and uint8 arrays.
 
-Every driven phase (4, 4b, 6, 7, 9, 10, 11, 12) also resets the plain-route counters
+Phase 12's checkpoints stay on disk for the eval suite:
+
+13. eval: the port's eval CLI (``eval/cli.py:main``, in-process, on the card)
+   over phase 12's ``ckpt_8`` at the temperature its log ends with, with the
+   model block written to a YAML file. Its data comes from seeds: the port's
+   ``tools/make_eval_set.py`` writes a zero-shot set of 1000 classes x 2
+   224-px images and a probe set of 64 classes x 16 train / 4 test images,
+   ``tools/make_compositional_data.py`` the SugarCREPE probes (256 items in
+   each of its 5 SugarCREPE-named splits); the phase writes a retrieval JSON
+   of 1000 images x 5 captions and a CREPE CSV and a COLA JSON over 48
+   coloured-shape scenes. Runs: zero-shot with the 80-prompt ensemble
+   (1000 x 80 prompts, ImageNet-1k's classifier shape) at batch 256,
+   retrieval at recall@1/5/10, the linear probe (``--val_proportion 0.2``,
+   ``--feature_root``) and again with ``--skip_load`` (the same metrics, no
+   model built), ``sugar_crepe`` at batch 64, ``crepe``, ``cola``, zero-shot
+   with the soup ``ckpt_5,ckpt_8``, and ``build`` over the records. Each run
+   (counters reset just before, read just after) must launch K2-fwd 12
+   times and K1-fwd once per encoder batch, nothing else, take no plain
+   route and give finite metrics in range; it prints its seconds, images/s
+   and texts/s through the encoder's fenced batch calls and the host share
+   (the time outside them). The soup's image embeddings must equal those of
+   a model loaded with the mean of the two state dicts, and
+   ``Solver.evaluate(8)`` on a Solver restored from ``ckpt_8`` must give the
+   CLI's SugarCREPE metrics bit for bit and leave every parameter as it was.
+
+Every driven phase (4, 4b, 6, 7, 9, 10, 11, 12, 13) also resets the plain-route counters
 (``attention_route.plain_routes``, ``codebook_route.plain_routes``: a kernel
 knob that got the plain path) just before and requires them at 0 just
 after, so the main path never slips onto the plain route unseen.
 
 Any failure exits non-zero. The line before the last is the kernels JSON
-(each kernel's train-step launches, its launches in phase 11's and phase 12's runs,
-error, times, bound and library time at its first shape),
+(each kernel's train-step launches, its launches in phase 11's and phase 12's runs
+and in phase 13's eval runs, error, times, bound and library time at its first shape),
 the last ``{"ok": true, "device": {...}}``. All numbers also go to
 ``build/chip_smoke.json`` (git-ignored).
 """
@@ -1170,11 +1196,13 @@ def copy_times(dev, reps: int = 5) -> dict:
     return out
 
 
-def pipeline_phase(dev, counted, report):
+def pipeline_phase(dev, counted, report, tmp):
     """Phase 12: ``Solver.train()`` from JPEG shards (run A, 8 steps) and its
     resume from ``ckpt_5`` (run B), then ``encode_images`` on PIL images with
     the bf16 serving cast. Without Pillow, synthetic data through the same
-    prefetcher and the native augment on uint8 arrays. Returns run A's launches."""
+    prefetcher and the native augment on uint8 arrays. Everything it writes
+    goes under ``tmp``. Returns run A's launches, its config and the paths of
+    its checkpoints and log."""
     from iterated_learning_for_vlm_tpu_torch.data import augment as aug
     from iterated_learning_for_vlm_tpu_torch.data import native
     from iterated_learning_for_vlm_tpu_torch.data import pipeline as pipe
@@ -1207,190 +1235,526 @@ def pipeline_phase(dev, counted, report):
     tier_fns = aug._mocov2_native, aug._mocov2_pil
     aug._mocov2_native = counted_tier("native", tier_fns[0])
     aug._mocov2_pil = counted_tier("pil", tier_fns[1])
-    with tempfile.TemporaryDirectory(prefix="ilvlm_pipeline_") as tmp:
-        rng = np.random.default_rng(SEED)
-        if pillow:
-            t0 = time.perf_counter()
-            paths = write_shards(os.path.join(tmp, "shards"), PIPE_SHARDS, PIPE_PER_SHARD,
-                                 caption_fn=long_caption)
-            row["write_shards_s"] = time.perf_counter() - t0
-            train = shard_train_block(os.path.join(tmp, "shards",
-                                                   f"{{00000..{PIPE_SHARDS - 1:05d}}}.tar"))
-            # the host float wire's first batch, from the same shards and seed
-            fcfg = dict(train, wire_dtype="float32", image_size=224, context_length=77)
-            host_first = next(iter(pipe.get_wds_dataset(fcfg, seed=SEED).dataloader))["image"]
-        else:
-            log(json.dumps({"phase12": "no Pillow on this machine: JPEG decode not run"}))
-            train = {"synthetic": True, "batch_size": BATCH, "num_batches": PIPE_STEPS,
-                     "epoch": 1}
-            arrays = [rng.integers(0, 256, (256, 320, 3), dtype=np.uint8) for _ in range(BATCH)]
-            u8 = np.stack([aug.mocov2_single(a, np.random.default_rng(i), out_u8=True)
-                           for i, a in enumerate(arrays)])
-            host_first = np.stack([aug.mocov2_single(a, np.random.default_rng(i))
-                                   for i, a in enumerate(arrays)])
-            staged = next(pipe.prefetch_to_device(iter([{"image": u8}]), dev))["image"]
-        cfg = pipeline_config(train)
-
-        # run A: 8 steps from the shards, fenced on each loss
-        a = solver_mod.Solver(Config(cfg), output_path=os.path.join(tmp, "a"),
-                              exp_name="pipeline", device=dev)
-        rec = {"loss": {}, "ctx": {}, "enter": {}, "exit": {}, "data": []}
-        timer = profiling.StepTimer(warmup=1)
-        step_fn, batches = a.train_step, a._batches
-
-        def timed_batches(epoch, skip=0):  # the loop's wait for each next batch
-            it = batches(epoch, skip)
-            while True:
-                t0 = time.perf_counter()
-                batch = next(it, None)
-                if batch is None:
-                    return
-                rec["data"].append(time.perf_counter() - t0)
-                yield batch
-
-        def spy_step(state, batch, temperature):
-            step = state.step + 1
-            rec["enter"][step] = time.perf_counter()
-            rec["ctx"][step] = batch["tokens"].shape[1]
-            if step == 1 and pillow:
-                rec["first_image"] = batch["image"].detach().cpu().numpy()
-            metrics = step_fn(state, batch, temperature)
-            timer.tick(metrics["loss"])
-            rec["exit"][step] = time.perf_counter()
-            rec["loss"][step] = metrics["loss"]
-            return metrics
-
-        a.train_step, a._batches = spy_step, timed_batches
-        sync()
-        if dev.type == "cuda":  # the peak of this run alone
-            torch.cuda.reset_peak_memory_stats(dev)
-        reset_counters(*counted.values())
-        reset_routes()
-        tiers.update(native=0, pil=0)
+    rng = np.random.default_rng(SEED)
+    if pillow:
         t0 = time.perf_counter()
-        a.train()
-        sync()
-        row["train_a_s"] = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counted.items()}
-        check_routes("pipeline")
-        want = {name: PIPE_STEPS * n for name, n in TRAIN_LAUNCHES.items()}
-        check(launches == want, f"pipeline launches {launches}, expected {want}")
-        losses_a = {s: v.item() for s, v in rec["loss"].items()}
-        check(sorted(losses_a) == list(range(1, PIPE_STEPS + 1))
-              and all(np.isfinite(v) for v in losses_a.values()),
-              f"pipeline losses are not {PIPE_STEPS} finite values: {losses_a}")
-        ctxs = [rec["ctx"][s] for s in sorted(rec["ctx"])]
-        row.update(losses_a=losses_a, ctx=ctxs, tiers=dict(tiers),
-                   step_host_ms=[1e3 * (rec["exit"][s] - rec["enter"][s]) for s in sorted(rec["exit"])],
-                   data_ms=[1e3 * x for x in rec["data"]],
-                   timer=timer.summary(), memory=profiling.device_memory_stats())
-        check(tiers["pil"] == 0 and (tiers["native"] >= PIPE_STEPS * BATCH or not pillow),
-              f"pipeline: augment tiers {tiers}, expected the native tier only")
-        if pillow:
-            check(set(ctxs) == {32, 77}, f"pipeline: batches ran at contexts {ctxs}, "
-                                         "expected both 32 and 77")
-            staged = rec.pop("first_image")
-        else:
-            staged = staged.cpu().numpy()
-        ok, err, differ = within_ulp(staged, host_first)
-        row["normalize"] = {"within_1_ulp": ok, "max_abs_diff": err, "elements_differing": differ}
-        check(ok, f"pipeline: the device normalize is {err} from the host float path")
-        log(f"pipeline: {PIPE_STEPS} steps of Solver.train() at bs{BATCH} from "
-            + (f"{PIPE_SHARDS} JPEG shards x {PIPE_PER_SHARD} (written in "
-               f"{row['write_shards_s']:.1f} s), MOCOV2_single" if pillow else "synthetic data")
-            + f", in {row['train_a_s']:.2f} s; launches {launches}; losses "
-            f"{[round(losses_a[s], 5) for s in sorted(losses_a)]}; contexts {ctxs} "
-            f"(ctx 32: {ctxs.count(32)}, ctx 77: {ctxs.count(77)}); augment tiers {tiers}")
-        log(f"pipeline normalize: the first batch normalized on the device against the host "
-            f"float wire: within 1 fp32 ulp {ok}, max |diff| {err:.3e}, {differ} elements differ")
-        log("pipeline host times (not throughput figures: the host's decode sets them): "
+        paths = write_shards(os.path.join(tmp, "shards"), PIPE_SHARDS, PIPE_PER_SHARD,
+                             caption_fn=long_caption)
+        row["write_shards_s"] = time.perf_counter() - t0
+        train = shard_train_block(os.path.join(tmp, "shards",
+                                               f"{{00000..{PIPE_SHARDS - 1:05d}}}.tar"))
+        # the host float wire's first batch, from the same shards and seed
+        fcfg = dict(train, wire_dtype="float32", image_size=224, context_length=77)
+        host_first = next(iter(pipe.get_wds_dataset(fcfg, seed=SEED).dataloader))["image"]
+    else:
+        log(json.dumps({"phase12": "no Pillow on this machine: JPEG decode not run"}))
+        train = {"synthetic": True, "batch_size": BATCH, "num_batches": PIPE_STEPS,
+                 "epoch": 1}
+        arrays = [rng.integers(0, 256, (256, 320, 3), dtype=np.uint8) for _ in range(BATCH)]
+        u8 = np.stack([aug.mocov2_single(a, np.random.default_rng(i), out_u8=True)
+                       for i, a in enumerate(arrays)])
+        host_first = np.stack([aug.mocov2_single(a, np.random.default_rng(i))
+                               for i, a in enumerate(arrays)])
+        staged = next(pipe.prefetch_to_device(iter([{"image": u8}]), dev))["image"]
+    cfg = pipeline_config(train)
+
+    # run A: 8 steps from the shards, fenced on each loss
+    a = solver_mod.Solver(Config(cfg), output_path=os.path.join(tmp, "a"),
+                          exp_name="pipeline", device=dev)
+    rec = {"loss": {}, "ctx": {}, "enter": {}, "exit": {}, "data": []}
+    timer = profiling.StepTimer(warmup=1)
+    step_fn, batches = a.train_step, a._batches
+
+    def timed_batches(epoch, skip=0):  # the loop's wait for each next batch
+        it = batches(epoch, skip)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            rec["data"].append(time.perf_counter() - t0)
+            yield batch
+
+    def spy_step(state, batch, temperature):
+        step = state.step + 1
+        rec["enter"][step] = time.perf_counter()
+        rec["ctx"][step] = batch["tokens"].shape[1]
+        if step == 1 and pillow:
+            rec["first_image"] = batch["image"].detach().cpu().numpy()
+        metrics = step_fn(state, batch, temperature)
+        timer.tick(metrics["loss"])
+        rec["exit"][step] = time.perf_counter()
+        rec["loss"][step] = metrics["loss"]
+        return metrics
+
+    a.train_step, a._batches = spy_step, timed_batches
+    sync()
+    if dev.type == "cuda":  # the peak of this run alone
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters(*counted.values())
+    reset_routes()
+    tiers.update(native=0, pil=0)
+    t0 = time.perf_counter()
+    a.train()
+    sync()
+    row["train_a_s"] = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    check_routes("pipeline")
+    want = {name: PIPE_STEPS * n for name, n in TRAIN_LAUNCHES.items()}
+    check(launches == want, f"pipeline launches {launches}, expected {want}")
+    losses_a = {s: v.item() for s, v in rec["loss"].items()}
+    check(sorted(losses_a) == list(range(1, PIPE_STEPS + 1))
+          and all(np.isfinite(v) for v in losses_a.values()),
+          f"pipeline losses are not {PIPE_STEPS} finite values: {losses_a}")
+    ctxs = [rec["ctx"][s] for s in sorted(rec["ctx"])]
+    row.update(losses_a=losses_a, ctx=ctxs, tiers=dict(tiers),
+               step_host_ms=[1e3 * (rec["exit"][s] - rec["enter"][s]) for s in sorted(rec["exit"])],
+               data_ms=[1e3 * x for x in rec["data"]],
+               timer=timer.summary(), memory=profiling.device_memory_stats())
+    check(tiers["pil"] == 0 and (tiers["native"] >= PIPE_STEPS * BATCH or not pillow),
+          f"pipeline: augment tiers {tiers}, expected the native tier only")
+    if pillow:
+        check(set(ctxs) == {32, 77}, f"pipeline: batches ran at contexts {ctxs}, "
+                                     "expected both 32 and 77")
+        staged = rec.pop("first_image")
+    else:
+        staged = staged.cpu().numpy()
+    ok, err, differ = within_ulp(staged, host_first)
+    row["normalize"] = {"within_1_ulp": ok, "max_abs_diff": err, "elements_differing": differ}
+    check(ok, f"pipeline: the device normalize is {err} from the host float path")
+    log(f"pipeline: {PIPE_STEPS} steps of Solver.train() at bs{BATCH} from "
+        + (f"{PIPE_SHARDS} JPEG shards x {PIPE_PER_SHARD} (written in "
+           f"{row['write_shards_s']:.1f} s), MOCOV2_single" if pillow else "synthetic data")
+        + f", in {row['train_a_s']:.2f} s; launches {launches}; losses "
+        f"{[round(losses_a[s], 5) for s in sorted(losses_a)]}; contexts {ctxs} "
+        f"(ctx 32: {ctxs.count(32)}, ctx 77: {ctxs.count(77)}); augment tiers {tiers}")
+    log(f"pipeline normalize: the first batch normalized on the device against the host "
+        f"float wire: within 1 fp32 ulp {ok}, max |diff| {err:.3e}, {differ} elements differ")
+    log("pipeline host times (not throughput figures: the host's decode sets them): "
 "data_time (the loop's wait for each batch) ms " + ", ".join(f"{x:.1f}" for x in row["data_ms"])
-            + "; step ms (fenced on the loss) " + ", ".join(f"{x:.1f}" for x in row["step_host_ms"])
-            + f"; StepTimer {row['timer']}")
-        log(f"pipeline device memory: {row['memory']}")
-        row["copy"] = copy_times(dev)
-        log("pipeline copy of one uint8 batch ({bytes} bytes): into pinned host memory "
-            "{pin_ms:.2f} ms (host clock), pinned to the card {pinned_h2d_ms:.3f} ms, "
-            "pageable to the card {pageable_h2d_ms:.3f} ms (CUDA events)".format(**row["copy"]))
-        final = {n: p.detach().cpu() for n, p in a.params.items()}
-        ckpt_5 = os.path.join(a.save_path, "ckpt_5.pth.tar")
-        check(sorted(os.listdir(a.save_path)) == ["ckpt_5.pth.tar", "ckpt_8.pth.tar"],
-              f"pipeline checkpoints {sorted(os.listdir(a.save_path))}")
+        + "; step ms (fenced on the loss) " + ", ".join(f"{x:.1f}" for x in row["step_host_ms"])
+        + f"; StepTimer {row['timer']}")
+    log(f"pipeline device memory: {row['memory']}")
+    row["copy"] = copy_times(dev)
+    log("pipeline copy of one uint8 batch ({bytes} bytes): into pinned host memory "
+        "{pin_ms:.2f} ms (host clock), pinned to the card {pinned_h2d_ms:.3f} ms, "
+        "pageable to the card {pageable_h2d_ms:.3f} ms (CUDA events)".format(**row["copy"]))
+    final = {n: p.detach().cpu() for n, p in a.params.items()}
+    ckpt_5 = os.path.join(a.save_path, "ckpt_5.pth.tar")
+    check(sorted(os.listdir(a.save_path)) == ["ckpt_5.pth.tar", "ckpt_8.pth.tar"],
+          f"pipeline checkpoints {sorted(os.listdir(a.save_path))}")
+    run_a = {"config": cfg, "ckpts": [ckpt_5, os.path.join(a.save_path, "ckpt_8.pth.tar")],
+             "log": os.path.join(a.output_path, "log.txt")}
 
-        # serving: PIL images (or, without Pillow, uint8 arrays) through ONECROP,
-        # with the bf16 serving cast and without it
-        if pillow:
-            images = [pipe._decode_image(x) for x in itertools.islice(iter_tar_samples(paths[0]),
-                                                                      BATCH)]
-        else:
-            images = arrays
-        enc_cast = TorchEncoder(a.model, batch_size=BATCH, num_workers=4,
-                                weight_dtype=torch.bfloat16, sd_temperature=SD_TEMPERATURE)
-        enc = TorchEncoder(a.model, batch_size=BATCH, num_workers=4,
-                           sd_temperature=SD_TEMPERATURE)
-        enc_cast.encode_images(images[:8])  # first call: cuBLAS set-up, outside the count
-        sync()
-        reset_counters(*counted.values())
-        reset_routes()
-        emb_cast = enc_cast.encode_images(images)
-        sync()
-        check_routes("pipeline serving")
-        serve_launches = {name: fn.launches for name, fn in counted.items() if fn.launches}
-        emb = enc.encode_images(images)
-        cast_params = {n: p.dtype for n, p in enc_cast.model.named_parameters()}
-        row["serving"] = {"launches": serve_launches, "bit_for_bit": bool(np.array_equal(
-            emb_cast, emb)), "bf16_params": sum(d == torch.bfloat16 for d in cast_params.values()),
-            "fp32_params": sum(d == torch.float32 for d in cast_params.values())}
-        log(f"pipeline serving: encode_images of {len(images)} "
-            + ("PIL images from the shards" if pillow else "uint8 arrays")
-            + f" (ONECROP, 4 workers) with weight_dtype=bfloat16 "
-            f"({row['serving']['bf16_params']} parameters cast, "
-            f"{row['serving']['fp32_params']} kept fp32): launches {serve_launches}; equal bit "
-            f"for bit to the uncast encoder: {row['serving']['bit_for_bit']}")
-        check(emb.shape == (BATCH, 512) and bool(np.isfinite(emb).all()),
-              "pipeline serving: embeddings are malformed")
-        check(row["serving"]["bit_for_bit"], "pipeline serving: the bf16 cast changed the "
-                                             "embeddings")
-        check(serve_launches == {"tiny_attention_fwd": 12, "codebook_pool_fwd": 1},
-              f"pipeline serving launched {serve_launches}, expected 12 and 1")
-        del enc, enc_cast, a, rec
-        gc.collect()
-        torch.cuda.empty_cache()
+    # serving: PIL images (or, without Pillow, uint8 arrays) through ONECROP,
+    # with the bf16 serving cast and without it
+    if pillow:
+        images = [pipe._decode_image(x) for x in itertools.islice(iter_tar_samples(paths[0]),
+                                                                  BATCH)]
+    else:
+        images = arrays
+    enc_cast = TorchEncoder(a.model, batch_size=BATCH, num_workers=4,
+                            weight_dtype=torch.bfloat16, sd_temperature=SD_TEMPERATURE)
+    enc = TorchEncoder(a.model, batch_size=BATCH, num_workers=4,
+                       sd_temperature=SD_TEMPERATURE)
+    enc_cast.encode_images(images[:8])  # first call: cuBLAS set-up, outside the count
+    sync()
+    reset_counters(*counted.values())
+    reset_routes()
+    emb_cast = enc_cast.encode_images(images)
+    sync()
+    check_routes("pipeline serving")
+    serve_launches = {name: fn.launches for name, fn in counted.items() if fn.launches}
+    emb = enc.encode_images(images)
+    cast_params = {n: p.dtype for n, p in enc_cast.model.named_parameters()}
+    row["serving"] = {"launches": serve_launches, "bit_for_bit": bool(np.array_equal(
+        emb_cast, emb)), "bf16_params": sum(d == torch.bfloat16 for d in cast_params.values()),
+        "fp32_params": sum(d == torch.float32 for d in cast_params.values())}
+    log(f"pipeline serving: encode_images of {len(images)} "
+        + ("PIL images from the shards" if pillow else "uint8 arrays")
+        + f" (ONECROP, 4 workers) with weight_dtype=bfloat16 "
+        f"({row['serving']['bf16_params']} parameters cast, "
+        f"{row['serving']['fp32_params']} kept fp32): launches {serve_launches}; equal bit "
+        f"for bit to the uncast encoder: {row['serving']['bit_for_bit']}")
+    check(emb.shape == (BATCH, 512) and bool(np.isfinite(emb).all()),
+          "pipeline serving: embeddings are malformed")
+    check(row["serving"]["bit_for_bit"], "pipeline serving: the bf16 cast changed the "
+                                         "embeddings")
+    check(serve_launches == {"tiny_attention_fwd": 12, "codebook_pool_fwd": 1},
+          f"pipeline serving launched {serve_launches}, expected 12 and 1")
+    del enc, enc_cast, a, rec
+    gc.collect()
+    torch.cuda.empty_cache()
 
-        # run B: a fresh Solver resumed from ckpt_5 skips 5 batches
-        b = solver_mod.Solver(Config(cfg), output_path=os.path.join(tmp, "b"),
-                              exp_name="pipeline", ckpt_path=ckpt_5, device=dev)
-        check(b._last_iter == 5, "pipeline: the resume lost its step")
-        losses_b, step_b = {}, b.train_step
+    # run B: a fresh Solver resumed from ckpt_5 skips 5 batches
+    b = solver_mod.Solver(Config(cfg), output_path=os.path.join(tmp, "b"),
+                          exp_name="pipeline", ckpt_path=ckpt_5, device=dev)
+    check(b._last_iter == 5, "pipeline: the resume lost its step")
+    losses_b, step_b = {}, b.train_step
 
-        def spy_b(state, batch, temperature):
-            metrics = step_b(state, batch, temperature)
-            losses_b[state.step] = metrics["loss"]
-            return metrics
+    def spy_b(state, batch, temperature):
+        metrics = step_b(state, batch, temperature)
+        losses_b[state.step] = metrics["loss"]
+        return metrics
 
-        b.train_step = spy_b
-        reset_routes()
-        b.train()
-        sync()
-        check_routes("pipeline resume")
-        losses_b = {s: v.item() for s, v in losses_b.items()}
-        diffs = {n: (p.detach().cpu() != final[n]).sum().item() for n, p in b.params.items()}
-        rest = list(range(6, PIPE_STEPS + 1))
-        bitwise = (sorted(losses_b) == rest and all(losses_b[s] == losses_a[s] for s in rest)
-                   and not any(diffs.values()))
-        row["resume"] = {"losses_a": [losses_a[s] for s in rest],
-                         "losses_b": [losses_b.get(s) for s in rest], "bit_for_bit": bitwise,
-                         "params_differing": {n: d for n, d in diffs.items() if d}}
-        log(f"pipeline resume from ckpt_5: losses of steps 6-8 {row['resume']['losses_b']} "
-            f"against run A's {row['resume']['losses_a']}; bit for bit: {bitwise}"
-            + ("" if bitwise else f"; parameters differing {row['resume']['params_differing']}"))
-        check(bitwise, "pipeline: the resume from ckpt_5 did not repeat run A bit for bit")
-        del b, final
-        gc.collect()
-        torch.cuda.empty_cache()
+    b.train_step = spy_b
+    reset_routes()
+    b.train()
+    sync()
+    check_routes("pipeline resume")
+    losses_b = {s: v.item() for s, v in losses_b.items()}
+    diffs = {n: (p.detach().cpu() != final[n]).sum().item() for n, p in b.params.items()}
+    rest = list(range(6, PIPE_STEPS + 1))
+    bitwise = (sorted(losses_b) == rest and all(losses_b[s] == losses_a[s] for s in rest)
+               and not any(diffs.values()))
+    row["resume"] = {"losses_a": [losses_a[s] for s in rest],
+                     "losses_b": [losses_b.get(s) for s in rest], "bit_for_bit": bitwise,
+                     "params_differing": {n: d for n, d in diffs.items() if d}}
+    log(f"pipeline resume from ckpt_5: losses of steps 6-8 {row['resume']['losses_b']} "
+        f"against run A's {row['resume']['losses_a']}; bit for bit: {bitwise}"
+        + ("" if bitwise else f"; parameters differing {row['resume']['params_differing']}"))
+    check(bitwise, "pipeline: the resume from ckpt_5 did not repeat run A bit for bit")
+    del b, final
+    gc.collect()
+    torch.cuda.empty_cache()
     aug._mocov2_native, aug._mocov2_pil = tier_fns
     report["pipeline"] = row | {"launches": launches}
-    return launches
+    return launches, run_a
+
+
+# -- phase 13: the eval suite over phase 12's checkpoints --------------------------
+# a zero-shot set of ImageNet-1k's classifier shape (1000 classes x 80 prompts),
+# 2 images a class; a probe set of 64 classes x 16 train / 4 test images; a
+# retrieval set of COCO-5k's test shape (5 captions an image) cut to 1000
+# images; SugarCREPE probes of 256 items a split; CREPE rows and COLA pairs
+EVAL_CLASSES, EVAL_PER_CLASS = 1000, 2
+PROBE_CLASSES, PROBE_TRAIN, PROBE_TEST = 64, 16, 4
+RET_IMAGES = 1000
+RET_TEMPLATES = ("a photo of {}", "{}", "an image showing {}", "a close-up picture of {}",
+                 "there is {} here")
+SC_PER_SPLIT = 256
+SC_SPLITS = 5  # the SugarCREPE-named splits make_compositional_data.py writes
+GROUP_ITEMS = 48  # CREPE rows; COLA pairs are half as many
+SC_BATCH = 64  # the Solver hook's encoder batch (TorchEncoder's default, as JAX's)
+
+
+def eval_data(root: str) -> None:
+    """Phase 13's data, from seeds: the zero-shot and probe sets and the
+    SugarCREPE probes through the port's ``tools/make_eval_set.py`` and
+    ``tools/make_compositional_data.py``; the retrieval JSON, CREPE CSV and
+    COLA JSON over JPEGs of the same synthetic classes and coloured shapes."""
+    import csv
+
+    from PIL import Image
+
+    from iterated_learning_for_vlm_tpu_torch.data import compositional as comp
+    from iterated_learning_for_vlm_tpu_torch.data.synthetic import SyntheticClipData
+    from iterated_learning_for_vlm_tpu_torch.tools import make_compositional_data, make_eval_set
+
+    make_eval_set.main([f"{root}/zs", "--num-classes", str(EVAL_CLASSES), "--per-class",
+                        str(EVAL_PER_CLASS)])
+    make_eval_set.main([f"{root}/probe", "--num-classes", str(PROBE_CLASSES), "--per-class",
+                        str(PROBE_TRAIN), "--split", "train"])
+    make_eval_set.main([f"{root}/probe", "--num-classes", str(PROBE_CLASSES), "--per-class",
+                        str(PROBE_TEST), "--split", "test", "--noise-seed", "778"])
+    make_compositional_data.main([f"{root}/comp", "--shards", "0", "--eval-per-split",
+                                  str(SC_PER_SPLIT)])
+    gen = SyntheticClipData(batch_size=1, image_size=224, seed=SEED, correlated=True,
+                            num_classes=RET_IMAGES)
+    rng = np.random.default_rng((SEED, 13))
+    os.makedirs(f"{root}/ret")
+    items = []
+    for k in range(RET_IMAGES):
+        arr = np.clip((gen._class_image(k, rng) * 0.25 + 0.5) * 255.0, 0, 255).astype(np.uint8)
+        Image.fromarray(arr).save(f"{root}/ret/{k}.jpg", quality=92)
+        name = " ".join(gen._class_caption(k).split()[3:])
+        items.append({"image": f"{k}.jpg", "captions": [t.format(name) for t in RET_TEMPLATES]})
+    with open(f"{root}/ret.json", "w") as f:
+        json.dump(items, f)
+
+    def caption(pair):
+        return comp.caption_for(comp.COLOR_NAMES[pair[0]], comp.SHAPES[pair[1]])
+
+    pairs = comp.seen_pairs() + comp.unseen_pairs()
+    rng = np.random.default_rng((SEED, 14))
+    os.makedirs(f"{root}/scenes")
+    drawn = [pairs[k % len(pairs)] for k in range(GROUP_ITEMS)]
+    for k, (c, s) in enumerate(drawn):
+        Image.fromarray(comp.to_uint8(comp.draw(c, s, 160, rng))).save(
+            f"{root}/scenes/{k}.jpg", quality=92)
+    crepe_dir = f"{root}/crepe/prod_hard_negatives/atom"
+    os.makedirs(crepe_dir)
+    with open(f"{crepe_dir}/prod_vg_hard_negs_atom_complexity_5.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["image_id", "caption", "hard_negs"])
+        for k, (c, s) in enumerate(drawn):
+            negs = [caption(comp.negative_pair(c, s, swap, rng))
+                    for swap in ("color", "shape", "color", "shape", "color")]
+            w.writerow([k, caption((c, s)), repr(negs)])
+    with open(f"{root}/cola.json", "w") as f:
+        json.dump([[f"{2 * i}.jpg", caption(drawn[2 * i]), f"{2 * i + 1}.jpg",
+                    caption(drawn[2 * i + 1])] for i in range(GROUP_ITEMS // 2)], f)
+
+
+def metrics_in_range(label: str, metrics) -> None:
+    """Every metric finite and in its range: scores and recalls in [0, 1],
+    CREPE's ranks among its 6 candidates."""
+    for key, value in metrics.items():
+        if isinstance(value, dict):
+            metrics_in_range(f"{label} {key}", value)
+        elif key == "normalized":
+            check(value is True, f"eval {label}: the probe's features were not normalized")
+        elif key == "weight_decay":
+            check(value in (0.0, 1e-6, 1e-4, 1e-2), f"eval {label}: weight decay {value}")
+        else:
+            hi = 6.0 if "rank" in key else 1.0
+            check(np.isfinite(value) and 0.0 <= value <= hi,
+                  f"eval {label}: {key} = {value} is not finite in [0, {hi}]")
+
+
+def eval_phase(dev, counted, report, run_a, tmp):
+    """Phase 13: the port's eval CLI (``eval.cli.main``) in-process on the card
+    over phase 12's ``ckpt_8`` (and the soup of ``ckpt_5`` and ``ckpt_8``),
+    then ``Solver.evaluate`` from ``ckpt_8``. Returns the launches of all its
+    runs together."""
+    from iterated_learning_for_vlm_tpu_torch.data.tokenizer import ClipTokenizer
+    from iterated_learning_for_vlm_tpu_torch.eval import builder, cli
+    from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder
+    from iterated_learning_for_vlm_tpu_torch.eval.prompts import PROMPT_80
+    from iterated_learning_for_vlm_tpu_torch.eval.model_loader import load_eval_encoder
+    from iterated_learning_for_vlm_tpu_torch.models import model_entry
+    from iterated_learning_for_vlm_tpu_torch.train.solver import Solver
+    from iterated_learning_for_vlm_tpu_torch.utils.config import Config
+
+    import yaml
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "eval")
+    os.makedirs(root)
+    with open(run_a["log"]) as f:
+        temps = re.findall(r"Iter \[\d+/\d+\] .* T ([0-9.]+) ", f.read())
+    check(bool(temps), "eval: no temperature in phase 12's log")
+    temperature = temps[-1]
+    config = os.path.join(root, "model.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump({"model": run_a["config"]["model"]}, f)
+    t0 = time.perf_counter()
+    eval_data(root)
+    row = {"data_s": time.perf_counter() - t0, "sd_temperature": float(temperature), "runs": {}}
+    log(f"eval: data written in {row['data_s']:.1f} s; the model block of phase 12 at T "
+        f"{temperature} (phase 12's log) from {os.path.basename(run_a['ckpts'][1])}")
+
+    stats = {}
+
+    def timed_batch(kind, fn):  # fenced: the caller copies the result to the host next
+        def call(self, *args, **kwargs):
+            if kind == "text":  # the context bucket the batch runs at
+                ctx = str(args[0].shape[1])
+                stats["text_ctx"][ctx] = stats["text_ctx"].get(ctx, 0) + 1
+            t0 = time.perf_counter()
+            out = fn(self, *args, **kwargs)
+            torch.cuda.synchronize()
+            stats[f"{kind}_s"] += time.perf_counter() - t0
+            stats[f"{kind}_batches"] += 1
+            return out
+        return call
+
+    def counted_items(kind, fn):
+        def call(self, items, *args, **kwargs):
+            stats[kind] += len(items)
+            return fn(self, items, *args, **kwargs)
+        return call
+
+    def timed(key, fn):  # the host work beside the batch calls
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                stats[key] += time.perf_counter() - t0
+        return call
+
+    loads = []
+    originals = {name: getattr(TorchEncoder, name) for name in
+                 ("image_batch", "text_batch", "encode_images", "encode_texts", "preprocess")}
+    load_encoder, build_dataset, tokenize = cli._load_encoder, builder.build_dataset, \
+        ClipTokenizer.__call__
+    TorchEncoder.image_batch = timed_batch("image", originals["image_batch"])
+    TorchEncoder.text_batch = timed_batch("text", originals["text_batch"])
+    TorchEncoder.encode_images = counted_items("images", originals["encode_images"])
+    TorchEncoder.encode_texts = counted_items("texts", originals["encode_texts"])
+    TorchEncoder.preprocess = timed("preprocess_s", originals["preprocess"])
+    ClipTokenizer.__call__ = timed("tokenize_s", tokenize)
+    builder.build_dataset = timed("dataset_s", build_dataset)
+    cli._load_encoder = timed("load_s", lambda *a, **k: loads.append(1) or load_encoder(*a, **k))
+    total = {name: 0 for name in counted}
+    out = os.path.join(root, "out", "{dataset}_{task}.json")
+    ckpt_5, ckpt_8 = run_a["ckpts"]
+
+    def run(label, argv, batches, pretrained=ckpt_8, batch_size=BATCH, fn=None):
+        stats.update(images=0, texts=0, image_batches=0, text_batches=0, image_s=0.0,
+                     text_s=0.0, load_s=0.0, dataset_s=0.0, tokenize_s=0.0, preprocess_s=0.0,
+                     text_ctx={})
+        loads.clear()
+        sync()
+        reset_counters(*counted.values())
+        reset_routes()
+        t0 = time.perf_counter()
+        if fn is None:
+            rec = cli.main(argv + ["--model_config", config, "--pretrained", pretrained,
+                                   "--batch_size", str(batch_size), "--sd_temperature",
+                                   temperature, "--output", out])
+            metrics = rec["metrics"]
+        else:
+            metrics = fn()
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counted.items()}
+        check_routes(f"eval {label}")
+        n = stats["image_batches"] + stats["text_batches"]
+        want = {name: 0 for name in counted} | {"tiny_attention_fwd": 12 * n,
+                                                 "codebook_pool_fwd": n}
+        check(launches == want, f"eval {label}: launches {launches}, expected {want} for "
+                                f"{n} encoder batches")
+        check((stats["image_batches"], stats["text_batches"]) == batches,
+              f"eval {label}: {stats['image_batches']} image and {stats['text_batches']} text "
+              f"batches, expected {batches}")
+        metrics_in_range(label, metrics)
+        enc_s = stats["image_s"] + stats["text_s"]
+        r = dict(stats, text_ctx=dict(stats["text_ctx"]), seconds=seconds,
+                 launches={k: v for k, v in launches.items() if v},
+                 images_per_s=stats["images"] / stats["image_s"] if stats["image_s"] else None,
+                 texts_per_s=stats["texts"] / stats["text_s"] if stats["text_s"] else None,
+                 host_share=1.0 - enc_s / seconds, models_loaded=len(loads), metrics=metrics)
+        row["runs"][label] = r
+        for name in counted:
+            total[name] += launches[name]
+        rates = "".join(f", {stats[k]} {k} ({stats[f'{k[:-1]}_batches']} batches, "
+                        f"{r[f'{k}_per_s']:.1f}/s through the encoder)"
+                        for k in ("images", "texts") if stats[k])
+        if stats["text_ctx"]:
+            rates += f", text batches by context {dict(sorted(stats['text_ctx'].items()))}"
+        host = {k[:-2]: stats[k] for k in ("load_s", "dataset_s", "tokenize_s", "preprocess_s")}
+        host["other"] = seconds - enc_s - sum(host.values())
+        r["host_s"] = host
+        log(f"eval {label}: {seconds:.2f} s{rates}; host share {r['host_share']:.1%} (the "
+            f"run's time outside the encoder's fenced batch calls: "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in host.items())
+            + f"); launches {r['launches']}; metrics {json.dumps(metrics)}")
+        return metrics
+
+    try:
+        zs = run("zeroshot 1000 classes x 80 prompts",
+                 ["eval", "--dataset", "wds/zs", "--dataset_root", f"{root}/zs", "--task",
+                  "zeroshot_classification", "--template_set", "80"],
+                 (-(-EVAL_CLASSES * EVAL_PER_CLASS // BATCH), EVAL_CLASSES * -(-80 // BATCH)))
+        ret = run("retrieval 1000 images x 5 captions",
+                  ["eval", "--dataset", f"retrieval_json:{root}/ret.json", "--dataset_root",
+                   f"{root}/ret", "--recall_k", "1", "5", "10"],
+                  (-(-RET_IMAGES // BATCH), -(-RET_IMAGES * len(RET_TEMPLATES) // BATCH)))
+        probe_argv = ["eval", "--dataset", "wds/probe", "--dataset_root", f"{root}/probe",
+                      "--task", "linear_probe", "--val_proportion", "0.2", "--feature_root",
+                      f"{root}/features"]
+        probe = run("linear probe 64 classes", probe_argv,
+                    (-(-PROBE_CLASSES * PROBE_TRAIN // BATCH)
+                     + -(-PROBE_CLASSES * PROBE_TEST // BATCH), 0))
+        cached = run("linear probe --skip_load", probe_argv + ["--skip_load"], (0, 0))
+        check(cached == probe and not row["runs"]["linear probe --skip_load"]["models_loaded"],
+              "eval: --skip_load built a model or changed the probe's metrics")
+        n_sc = SC_PER_SPLIT // SC_BATCH
+        sugar = run("sugar_crepe", ["sugar_crepe", "--data_root", f"{root}/comp/eval",
+                                    "--image_root", f"{root}/comp/eval/images"],
+                    (SC_SPLITS * n_sc, 2 * SC_SPLITS * n_sc), batch_size=SC_BATCH)
+        check(len(sugar) == SC_SPLITS + 1, f"eval: sugar_crepe scored {sorted(sugar)}")
+        run("crepe", ["crepe", "--data_root", f"{root}/crepe", "--image_dirs", f"{root}/scenes",
+                      "--complexities", "5"], (1, -(-6 * GROUP_ITEMS // BATCH)))
+        run("cola", ["cola", "--json_path", f"{root}/cola.json", "--image_root",
+                     f"{root}/scenes"], (1, 1))
+        run("soup ckpt_5 + ckpt_8 zeroshot 64 classes",
+            ["eval", "--dataset", "wds/probe", "--dataset_root", f"{root}/probe", "--task",
+             "zeroshot_classification"], (1, PROBE_CLASSES), pretrained=f"{ckpt_5},{ckpt_8}")
+        rows = cli.main(["build", os.path.join(root, "out"), "--output",
+                         os.path.join(root, "results.csv")])
+        check(len(rows) == 7, f"eval build: {len(rows)} rows, expected 7")
+        log(f"eval build: {len(rows)} records into one CSV")
+
+        # the soup against a model loaded with the mean of the two state dicts
+        images = builder.build_dataset("wds/probe", root=f"{root}/probe").images
+        soup = load_eval_encoder(config, [ckpt_5, ckpt_8], batch_size=BATCH,
+                                 sd_temperature=float(temperature))
+        sds = [torch.load(p, map_location="cpu", weights_only=True)["model"]
+               for p in (ckpt_5, ckpt_8)]
+        mean = {k: ((sds[0][k].double() + sds[1][k].double()) / 2).float() for k in sds[0]}
+        ref = model_entry(Config(run_a["config"]).model, device=dev)
+        ref.load_state_dict(mean)
+        soup_equal = bool(np.array_equal(
+            soup.encode_images(images),
+            TorchEncoder(ref, batch_size=BATCH, sd_temperature=float(temperature))
+            .encode_images(images)))
+        log(f"eval soup: image embeddings of {len(images)} images equal to a model loaded "
+            f"with the mean state dict: {soup_equal}")
+        check(soup_equal, "eval: the soup's embeddings differ from the mean state dict's")
+
+        # the device's share of the classifier's text batches (80 prompts a class)
+        from torch.profiler import ProfilerActivity, profile
+
+        with open(f"{root}/zs/classnames.txt") as f:
+            names = f.read().split("\n")[:10]
+        soup.encode_texts([t.format(names[0]) for t in PROMPT_80])
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for name in names:
+                soup.encode_texts([t.format(name) for t in PROMPT_80])
+            sync()
+        device_ms = sum(getattr(e, "self_device_time_total", 0) for e in
+                        prof.key_averages()) / 1e3 / len(names)
+        fenced_ms = 1e3 * row["runs"]["zeroshot 1000 classes x 80 prompts"]["text_s"] / EVAL_CLASSES
+        row["classifier_text_batch"] = {"device_ms": device_ms, "fenced_ms": fenced_ms,
+                                        "device_share": device_ms / fenced_ms}
+        log(f"eval profile: a class's 80 prompts (one text batch at batch 256) take "
+            f"{device_ms:.3f} ms of device time (torch.profiler over {len(names)} classes) "
+            f"against {fenced_ms:.3f} ms in the zero-shot run's fenced batch calls: the device "
+            f"is busy {device_ms / fenced_ms:.1%} of that time")
+        del soup, ref, sds, mean
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the Solver's SugarCREPE hook from ckpt_8 against the CLI, bit for bit
+        hcfg = Config(run_a["config"])
+        hcfg["data"] = {"train": {"synthetic": True, "batch_size": BATCH, "num_batches": 8},
+                        "test": {"sc_data_root": f"{root}/comp/eval",
+                                 "sc_image_root": f"{root}/comp/eval/images"}}
+        solver = Solver(hcfg, output_path=os.path.join(root, "hook"), exp_name="hook",
+                        ckpt_path=ckpt_8, device=dev)
+        before = {n: p.detach().clone() for n, p in solver.params.items()}
+        hook = run("Solver.evaluate(8)", None, (SC_SPLITS * n_sc, 2 * SC_SPLITS * n_sc),
+                   fn=lambda: solver.evaluate(8))
+        same = hook == sugar
+        untouched = all(torch.equal(p, before[n]) for n, p in solver.params.items())
+        log(f"eval hook: Solver.evaluate(8) equals the CLI's sugar_crepe bit for bit: {same}; "
+            f"parameters untouched bit for bit: {untouched}; train mode after: "
+            f"{solver.model.training}")
+        check(same and untouched and solver.model.training,
+              "eval: the Solver's hook differs from the CLI or changed the model")
+        del solver, before
+    finally:
+        for name, fn in originals.items():
+            setattr(TorchEncoder, name, fn)
+        cli._load_encoder, builder.build_dataset = load_encoder, build_dataset
+        ClipTokenizer.__call__ = tokenize
+    gc.collect()
+    torch.cuda.empty_cache()
+    text_ctx = {}
+    for r in row["runs"].values():
+        for ctx, n in r["text_ctx"].items():
+            text_ctx[ctx] = text_ctx.get(ctx, 0) + n
+    row.update(seconds=time.perf_counter() - t_phase, launches=total, zeroshot=zs,
+               retrieval=ret, text_ctx=text_ctx,
+               image_batches=sum(r["image_batches"] for r in row["runs"].values()))
+    log(f"eval: phase 13 in {row['seconds']:.1f} s; launches of its runs {total}; encoder "
+        f"batches: {row['image_batches']} image (S=50, T=49), text by context {text_ctx}")
+    report["eval"] = row
+    return total
 
 
 def main() -> int:
@@ -1437,11 +1801,14 @@ def main() -> int:
           attention_case(dev, f"text B={BATCH} S=77 H=8 causal", BATCH, 77, 8, True),
           attention_case(dev, f"text B={BATCH} S=32 H=8 causal", BATCH, 32, 8, True),
           attention_case(dev, f"text B={BATCH} S=77 H=8 causal as bias", BATCH, 77, 8, True,
-                         "bias")]
+                         "bias"),
+          attention_case(dev, f"text B={BATCH} S=16 H=8 causal (eval prompts)", BATCH, 16, 8,
+                         True)]
     k1 = [pool_case(dev, f"image B={BATCH} T=49", BATCH, 49, False),
           pool_case(dev, f"text B={BATCH} T=32 pads", BATCH, 32, True),
           pool_case(dev, f"text B={BATCH} T=77 pads", BATCH, 77, True),
-          pool_case(dev, f"B/16 image B={BATCH} T=196", BATCH, 196, False)]
+          pool_case(dev, f"B/16 image B={BATCH} T=196", BATCH, 196, False),
+          pool_case(dev, f"text B={BATCH} T=16 pads (eval prompts)", BATCH, 16, True)]
     report["kernel_checks"] = {"tiny_attention_fwd": k2, "codebook_pool_fwd": k1}
 
     # 3b. backward kernels against their plain versions, main-path shapes
@@ -1645,10 +2012,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     solver_launches = solver_phase(dev, counted, report)
 
-    # 12. the data pipeline, after phase 11's models are freed
+    # 12. the data pipeline, after phase 11's models are freed; its checkpoints
+    # stay on disk for 13. the eval suite
     gc.collect()
     torch.cuda.empty_cache()
-    pipeline_launches = pipeline_phase(dev, counted, report)
+    with tempfile.TemporaryDirectory(prefix="ilvlm_pipeline_") as tmp:
+        pipeline_launches, run_a = pipeline_phase(dev, counted, report, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        eval_launches = eval_phase(dev, counted, report, run_a, tmp)
 
     report["seconds_total"] = time.perf_counter() - t_start
     out_dir = REPO / "build"
@@ -1671,7 +2043,8 @@ def main() -> int:
                         **{key: rows[0][key] for key in ("ms", "plain_ms", "bound_ms",
                                                          "bound_by", "library_ms")},
                         "shape": rows[0]["case"], "launches_solver": solver_launches[name],
-                        "launches_pipeline": pipeline_launches[name]})
+                        "launches_pipeline": pipeline_launches[name],
+                        "launches_eval": eval_launches[name]})
         serving = clip_serve_launches if flash else launches
         if serving.get(name):
             kernels[-1]["launches_serving"] = serving[name]

@@ -1,1 +1,2 @@
-"""Serving / evaluation encoders of the PyTorch port."""
+"""Evaluation of the PyTorch port: the encoders, the model loader, the scorers
+and the eval CLI (``ilvlm-eval-torch``)."""

@@ -26,6 +26,10 @@ reset rules) are taken the same way for the port's parameters.
 
 Pure numpy: the params arrive as nested dicts of arrays (``np.asarray`` of
 each JAX leaf), so this needs neither jax nor flax.
+
+:func:`_openai_to_reference_keys` and :func:`_looks_like_openai_layout` are
+copies of the JAX module's: the OpenAI/open_clip state-dict layout renamed to
+the reference one, which ``eval/model_loader.py`` loads.
 """
 from __future__ import annotations
 
@@ -162,3 +166,40 @@ def load_jax_params(model, params: Mapping[str, Any]):
     sd = {k: torch.from_numpy(v) for k, v in state_dict_from_jax_params(params).items()}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _openai_to_reference_keys(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Rename an OpenAI/open_clip CLIP state dict to the reference layout
+    (a copy of JAX ``tools/torch_checkpoint.py:_openai_to_reference_keys``,
+    on torch tensors).
+
+    Official CLIP (and open_clip "quickgelu" models) keep the text tower's
+    keys unprefixed (``transformer.resblocks...``, ``token_embedding.weight``,
+    ``ln_final.*``) and ``text_projection`` is a bare ``[width, embed]``
+    parameter (``x @ text_projection``, no bias), where the reference has the
+    ``encode_text.`` prefix and a Linear text projection.
+    """
+    import torch
+
+    out: Dict[str, Any] = {}
+    for key, value in sd.items():
+        if key.startswith(("visual.", "encode_text.")) or key in (
+                "logit_scale", "logit_scale_sd", "space_dict"):
+            out[key] = value
+        elif key == "text_projection":
+            # bare [width, embed]: its transpose is the Linear weight [out, in];
+            # the bias is zero
+            out["encode_text.text_projection.weight"] = value.T.contiguous()
+            out["encode_text.text_projection.bias"] = torch.zeros(value.shape[1],
+                                                                  dtype=value.dtype)
+        elif key.startswith(("transformer.", "token_embedding.",
+                             "ln_final.")) or key == "positional_embedding":
+            out["encode_text." + key] = value
+        else:  # BN buffers, attn_mask buffers, etc.: the loader drops them
+            out[key] = value
+    return out
+
+
+def _looks_like_openai_layout(sd: Mapping[str, Any]) -> bool:
+    return ("token_embedding.weight" in sd
+            and not any(k.startswith("encode_text.") for k in sd))

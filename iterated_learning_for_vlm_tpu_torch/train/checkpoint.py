@@ -188,14 +188,15 @@ def find_last_checkpoint(save_dir: str) -> Optional[str]:
     return best
 
 
-def restore_params_soup(paths: List[str]) -> Dict[str, torch.Tensor]:
+def restore_params_soup(paths: List[str], load=None) -> Dict[str, torch.Tensor]:
     """The mean of several checkpoints' model weights, summed in float64
     (reference eval-side soup, ``CLIP_benchmark/models/fdt.py:28-40``), as a
-    float32 state dict on the host."""
+    float32 state dict on the host. ``load(path)`` gives a file's state dict
+    (default: :func:`load_checkpoint`'s ``"model"``)."""
     assert paths
     acc = None
     for p in paths:
-        sd = load_checkpoint(p)["model"]
+        sd = load(p) if load is not None else load_checkpoint(p)["model"]
         if acc is None:
             acc = {k: v.double() for k, v in sd.items()}
         else:

@@ -16,18 +16,22 @@ MOCOV2 augment, tokenize, context buckets) or from ``data/synthetic.py``, and
 reach the device through ``prefetch_to_device``, which stages the next two
 while the step runs.
 
-Ported so far: the ``clip`` recipe (CLIP and CLIP-FDT), on one device. The
-eval hooks (ROADMAP.md Queue 1 item 4), DDP and tensor parallelism (item 5)
-and the other recipes and their batch extras (item 6) raise
-``NotImplementedError``.
+The eval hooks (``evaluate``: SugarCREPE, ``imagenet_evaluate``: zero-shot
+classification) score the model through a ``TorchEncoder`` as JAX's do.
+
+Ported so far: the ``clip`` recipe (CLIP and CLIP-FDT), on one device. DDP
+and tensor parallelism (ROADMAP.md Queue 1 item 5) and the other recipes and
+their batch extras (item 6) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import time
 from typing import Dict, Iterator, Optional
 
+import numpy as np
 import torch
 
 from ..data.pipeline import get_wds_dataset, prefetch_to_device
@@ -157,6 +161,7 @@ class Solver:
     def _build_model(self):
         self.model = model_entry(self.config.model, self.device,
                                  generator=self._generator(self.seed))
+        self.tokenizer = get_tokenizer()
         self.params = dict(self.model.named_parameters())
         n_params = sum(p.numel() for p in self.params.values())
         self.logger.info("model %s: %.2fM params", self.config.model.type, n_params / 1e6)
@@ -397,24 +402,80 @@ class Solver:
         return self.state
 
     # -- eval hooks ----------------------------------------------------------
+    @contextlib.contextmanager
+    def _eval_encoder(self):
+        """A ``TorchEncoder`` over the Solver's model and tokenizer (JAX builds
+        a ``JitEncoder`` with the encoder's defaults the same way). The
+        encoder puts the model in eval mode; it goes back to its mode after.
+        Encoding reads the parameters under ``inference_mode`` and draws from
+        no random stream, so the run trains on bit for bit as without it."""
+        from ..eval.encode import TorchEncoder
+
+        mode = self.model.training
+        try:
+            yield TorchEncoder(self.model, tokenizer=self.tokenizer)
+        finally:
+            self.model.train(mode)
+
     def evaluate(self, step: int):
-        """In-training SugarCREPE eval (reference train_solver.py:623-678):
-        None when ``data.test.sc_data_root`` is unset or missing, as in JAX;
-        the eval suite itself is not ported yet (ROADMAP.md Queue 1 item 4)."""
+        """In-training SugarCREPE eval (reference train_solver.py:623-678; JAX
+        ``Solver.evaluate``); None when ``data.test.sc_data_root`` is unset or
+        missing."""
         test_cfg = self.config.data.get("test", {}) or {}
         data_root = test_cfg.get("sc_data_root")
+        image_root = test_cfg.get("sc_image_root")
         if not data_root or not os.path.isdir(str(data_root)):
             return None
-        raise NotImplementedError("in-training SugarCREPE eval is not ported to the PyTorch "
-                                  "package yet (ROADMAP.md Queue 1 item 4)")
+        from ..eval.sugar_crepe import evaluate_sugar_crepe
+
+        with self._eval_encoder() as encoder:
+            metrics = evaluate_sugar_crepe(
+                encoder, data_root=str(data_root), image_root=str(image_root)
+            )
+        for k, v in metrics.items():
+            self.logger.info("eval step %d: %s = %.4f", step, k, v)
+        # best-composition-score tracking (reference train_solver.py:657-667:
+        # keeps the best split dict and flags a >0.003 mean drop; the caller
+        # there ignores the flag, kept as in JAX)
+        mean_score = float(np.mean(list(metrics.values()))) if metrics else 0.0
+        prev = getattr(self, "best_composition_score", None)
+        improved = True
+        if prev:
+            prev_mean = float(np.mean(list(prev.values())))
+            if mean_score + 0.003 < prev_mean:
+                improved = False
+        if improved:
+            self.best_composition_score = dict(metrics)
+        self.metrics_writer.log(
+            {**{f"eval/{k}": v for k, v in metrics.items()},
+             "eval/sugar-crepe-mean-score": mean_score},
+            step=step,
+        )
+        return metrics
 
     def imagenet_evaluate(self, step: int):
-        """In-training zero-shot classification (reference train_solver.py:683-716):
-        None when ``data.test.imagenet_root`` is unset or missing, as in JAX;
-        not ported yet (ROADMAP.md Queue 1 item 4)."""
+        """In-training zero-shot classification (reference train_solver.py:683-716;
+        JAX ``Solver.imagenet_evaluate``) over a local dataset at
+        ``data.test.imagenet_root``, a wds-protocol directory or class folders;
+        None when it is unset or missing."""
         test_cfg = self.config.data.get("test", {}) or {}
         root = test_cfg.get("imagenet_root")
         if not root or not os.path.isdir(str(root)):
             return None
-        raise NotImplementedError("in-training zero-shot ImageNet eval is not ported to the "
-                                  "PyTorch package yet (ROADMAP.md Queue 1 item 4)")
+        from ..eval.builder import build_folder_dataset, build_wds_dataset
+        from ..eval.zeroshot_classification import evaluate_zeroshot_classification
+
+        root = str(root)
+        if os.path.exists(os.path.join(root, "classnames.txt")):
+            ds = build_wds_dataset(root, "imagenet")
+        else:
+            ds = build_folder_dataset(root, "imagenet")
+        with self._eval_encoder() as encoder:
+            metrics = evaluate_zeroshot_classification(
+                encoder, ds.images, ds.labels, ds.classnames, ds.templates
+            )
+        for k, v in metrics.items():
+            self.logger.info("imagenet step %d: %s = %.4f", step, k, v)
+        self.metrics_writer.log({f"eval/ImageNet_{k}": v for k, v in metrics.items()},
+                                step=step)
+        return metrics

@@ -859,11 +859,11 @@ def _solver_cfg(train=None):
             "reset": {"enable": True, "reset_steps": 2, "reset_nums": 3, "smooth_steps": 1}}
 
 
-def _solver_run(tmp_path, name, train=None, contexts=None, **kw):
+def _solver_run(tmp_path, name, train=None, contexts=None, config=None, **kw):
     from iterated_learning_for_vlm_tpu_torch.train.solver import Solver
     from iterated_learning_for_vlm_tpu_torch.utils.config import Config
 
-    s = Solver(Config(_solver_cfg(train)), output_path=str(tmp_path / name), **kw)
+    s = Solver(Config(config or _solver_cfg(train)), output_path=str(tmp_path / name), **kw)
     losses, step_fn = {}, s.train_step
 
     def spy(state, batch, temperature):
@@ -970,3 +970,109 @@ def test_solver_from_shards_kernels_and_resume(dev, tmp_path):
     assert losses_b == {s: losses_a[s] for s in (4, 5, 6)}
     for n, p in b.params.items():
         assert torch.equal(p, a.params[n]), n
+
+
+# -- the evaluation suite ----------------------------------------------------------
+def _eval_setup(tmp_path, dev):
+    """The two-layer bf16 CLIP-FDT of ``_solver_cfg`` as a YAML config, a
+    checkpoint of it written by ``save_checkpoint``, and SugarCREPE probes
+    from the port's ``make_compositional_data.py`` (5 splits x 6 items)."""
+    import yaml
+
+    from iterated_learning_for_vlm_tpu_torch.tools import make_compositional_data
+    from iterated_learning_for_vlm_tpu_torch.train.checkpoint import save_checkpoint
+    from iterated_learning_for_vlm_tpu_torch.train.optim import adamw_init, trainable_mask_tree
+    from iterated_learning_for_vlm_tpu_torch.train.train_state import TrainState
+
+    model_cfg = _solver_cfg()["model"]
+    config = tmp_path / "model.yaml"
+    config.write_text(yaml.safe_dump({"model": model_cfg}))
+    model = model_entry(model_cfg, device=dev, generator=_gen(5))
+    params = dict(model.named_parameters())
+    state = TrainState.create(params, adamw_init(params), trainable_mask_tree(params),
+                              params["space_dict"])
+    ckpt = save_checkpoint(str(tmp_path / "ckpts"), model, state, 7)
+    make_compositional_data.main([str(tmp_path / "comp"), "--shards", "0", "--eval-per-split",
+                                  "6", "--image-size", "48"])
+    return str(config), ckpt, str(tmp_path / "comp" / "eval")
+
+
+def test_eval_cli_on_the_card(dev, tmp_path, monkeypatch):
+    """``eval.cli.main`` with no device named runs on the card: zero-shot on
+    the dummy set and SugarCREPE launch K2-fwd twice (2 layers) and K1-fwd
+    once for each encoder batch, nothing else, and take no plain route."""
+    from iterated_learning_for_vlm_tpu_torch.eval import cli
+    from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder
+
+    config, ckpt, sc = _eval_setup(tmp_path, dev)
+    batches = []
+    for name in ("image_batch", "text_batch"):
+        def counted(self, *a, _orig=getattr(TorchEncoder, name), **k):
+            batches.append(self.device.type)
+            return _orig(self, *a, **k)
+        monkeypatch.setattr(TorchEncoder, name, counted)
+    common = ["--model_config", config, "--pretrained", ckpt, "--batch_size", "8"]
+    before = _counts()
+    zs = cli.main(["eval", "--dataset", "dummy"] + common)
+    sugar = cli.main(["sugar_crepe", "--data_root", sc, "--image_root", sc + "/images"] + common)
+    torch.cuda.synchronize()
+    n = len(batches)
+    assert set(batches) == {"cuda"} and n == (1 + 2) + 5 * (1 + 2 * 1)
+    assert _deltas(before) == ([2 * n, 0, n, 0, 0, 0, 0], 0, 0)
+    assert 0.0 <= zs["metrics"]["acc1"] <= 1.0
+    assert len(sugar["metrics"]) == 6
+    assert all(0.0 <= v <= 1.0 for v in sugar["metrics"].values())
+
+
+def test_train_head_on_the_card_matches_cpu(dev):
+    """The linear-probe head trained on the card (fp32, TF32 off) against
+    the same on the CPU: weights within 1e-4."""
+    from iterated_learning_for_vlm_tpu_torch.eval.linear_probe import _train_head
+
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((300, 64)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
+    labels = rng.integers(0, 10, 300)
+    torch.backends.cuda.matmul.allow_tf32 = True  # the head turns it off for itself
+    try:
+        w, b = _train_head(feats, labels, 10, weight_decay=1e-4, device=dev)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    w_cpu, b_cpu = _train_head(feats, labels, 10, weight_decay=1e-4)
+    np.testing.assert_allclose(w, w_cpu, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(b, b_cpu, atol=1e-4, rtol=0)
+    assert np.abs(w_cpu).max() > 0.1
+
+
+def test_eval_hook_leaves_training_bit_for_bit(dev, tmp_path, monkeypatch):
+    """The card's Solver with the SugarCREPE hook every 2 steps trains bit
+    for bit as without it (losses and final parameters), is back in train
+    mode after each hook, and ``imagenet_evaluate`` changes no parameter."""
+    from iterated_learning_for_vlm_tpu_torch.tools import make_eval_set
+    from iterated_learning_for_vlm_tpu_torch.train.solver import Solver
+
+    _, _, sc = _eval_setup(tmp_path, dev)
+    make_eval_set.main([str(tmp_path / "zs"), "--num-classes", "4", "--per-class", "2",
+                        "--image-size", "48"])
+    a, losses_a, _ = _solver_run(tmp_path, "a")
+    modes, evaluate = [], Solver.evaluate
+
+    def spy(self, step):
+        out = evaluate(self, step)
+        modes.append((step, self.model.training, out is not None))
+        return out
+
+    monkeypatch.setattr(Solver, "evaluate", spy)
+    config = _solver_cfg()
+    config["saver"]["val_freq"] = 2
+    config["data"]["test"] = {"sc_data_root": sc, "sc_image_root": sc + "/images",
+                              "imagenet_root": str(tmp_path / "zs")}
+    b, losses_b, _ = _solver_run(tmp_path, "b", config=config)
+    assert modes == [(2, True, True), (4, True, True), (6, True, True)]
+    assert losses_b == losses_a
+    for n, p in b.params.items():
+        assert torch.equal(p, a.params[n]), n
+    before = {n: p.detach().clone() for n, p in b.params.items()}
+    assert b.imagenet_evaluate(6) is not None and b.model.training
+    assert all(torch.equal(p, before[n]) for n, p in b.params.items())

@@ -794,19 +794,130 @@ def test_unported_options_raise(case, tmp_path):
         Solver(cfg, output_path=str(tmp_path), device="cpu")
 
 
-def test_eval_hooks(tmp_path):
+def test_eval_hooks(tmp_path, eval_sets):
     """No eval data configured, or a path that does not exist: None, as in
-    JAX. An existing path: the unported eval suite raises."""
+    JAX. Existing data: both hooks return their metrics."""
     s = port_solver("clip", None, tmp_path)
     assert s.evaluate(1) is None and s.imagenet_evaluate(1) is None
     s.config.data["test"] = {"sc_data_root": str(tmp_path / "missing"),
                              "imagenet_root": str(tmp_path / "missing")}
     assert s.evaluate(1) is None and s.imagenet_evaluate(1) is None
-    s.config.data["test"] = {"sc_data_root": str(tmp_path), "imagenet_root": str(tmp_path)}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        s.evaluate(1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        s.imagenet_evaluate(1)
+    s.config.data["test"] = eval_sets
+    sc, zs = s.evaluate(1), s.imagenet_evaluate(1)
+    assert set(sc) == {f"sugar-crepe-{k}" for k in SC_SPLITS + ("mean",)}
+    assert set(zs) == {"acc1", "acc5", "mean_per_class_recall"}
+    assert all(0.0 <= v <= 1.0 for v in list(sc.values()) + list(zs.values()))
+
+
+# -- (h) the eval hooks ----------------------------------------------------------------------
+# the SugarCREPE-named splits of the port's make_compositional_data.py
+SC_SPLITS = ("add_obj", "add_att", "replace_rel", "swap_obj", "swap_att")
+
+
+@pytest.fixture(scope="module")
+def eval_sets(tmp_path_factory):
+    """``data.test`` over tiny local sets from the port's tools: SugarCREPE
+    probes (5 splits x 4 items, 32 px) and a 4-class zero-shot set (4 x 2)."""
+    from iterated_learning_for_vlm_tpu_torch.tools import make_compositional_data, make_eval_set
+
+    root = tmp_path_factory.mktemp("eval_sets")
+    make_compositional_data.main([str(root / "comp"), "--shards", "0", "--eval-per-split", "4",
+                                  "--image-size", "32"])
+    make_eval_set.main([str(root / "imagenet"), "--num-classes", "4", "--per-class", "2",
+                        "--image-size", "32", "--split", "test"])
+    return {"sc_data_root": str(root / "comp" / "eval"),
+            "sc_image_root": str(root / "comp" / "eval" / "images"),
+            "imagenet_root": str(root / "imagenet")}
+
+
+def _eval_records(path):
+    return [{k: v for k, v in r.items() if k != "ts"} for r in read_metrics(path)
+            if any(k.startswith("eval/") for k in r)]
+
+
+@pytest.mark.parametrize("name", ["clip_fdt", "clip"])
+def test_eval_hooks_match_jax(name, eval_sets, tmp_path, monkeypatch):
+    """Both Solvers from the same initial params, with ``val_freq`` 3 and
+    ``data.test`` set. CLIP trains its 6 steps (the SugarCREPE hook fires at
+    3 and 6); CLIP-FDT, whose free-running params drift from JAX's (see the
+    module docstring), is scored at step 0. Then ``imagenet_evaluate``. The
+    records carry the same ``eval/*`` keys at the same steps and the same
+    values; every encoder output agrees within ATOL and every decision's
+    margin is asserted as in ``test_torch_port_eval.py``."""
+    from test_torch_port_eval import (ATOL, SCORE_ATOL, _sugar_scores, _zeroshot_scores,
+                                      assert_decisions, record_encoders)
+
+    logs = record_encoders(monkeypatch)
+    train = name == "clip"
+    cfgs = [_config(name, False if name == "clip_fdt" else None, loader, val_freq=3)
+            for loader in (jconfig.load_config, pconfig.load_config)]
+    for cfg in cfgs:
+        cfg.data["test"] = dict(eval_sets)
+    js = JSolver(cfgs[0], output_path=str(tmp_path / "jax"), exp_name="run",
+                 mesh=create_mesh(1))
+    s = Solver(cfgs[1], output_path=str(tmp_path / "port"), exp_name="run", device="cpu")
+    load_jax_params(s.model, jax.device_get(js.params))
+    s._build_optimizer()
+    results = {}
+    for side, solver in (("jax", js), ("port", s)):
+        if train:
+            solver.train()
+            step = 6
+        else:
+            step = 0
+            solver.evaluate(step)
+        n_sc = len(logs[side])
+        solver.imagenet_evaluate(step)
+        results[side] = n_sc
+    assert s.model.training
+    assert [k for k, _ in logs["port"]] == [k for k, _ in logs["jax"]]
+    for (_, w), (_, g) in zip(logs["jax"], logs["port"]):
+        np.testing.assert_allclose(g, w, atol=ATOL, rtol=0)
+    n_sc = results["jax"]
+    assert results["port"] == n_sc == (2 if train else 1) * 3 * len(SC_SPLITS)
+    for w, g in zip(_sugar_scores(logs["jax"][:n_sc]), _sugar_scores(logs["port"][:n_sc])):
+        assert_decisions(w, g, SCORE_ATOL)
+    for w, g in zip(_zeroshot_scores(logs["jax"][n_sc:]), _zeroshot_scores(logs["port"][n_sc:])):
+        assert_decisions(w, g, 100 * SCORE_ATOL)
+    want = _eval_records(os.path.join(js.output_path, "metrics.jsonl"))
+    got = _eval_records(os.path.join(s.output_path, "metrics.jsonl"))
+    assert [r["step"] for r in got] == ([3, 6, 6] if train else [0, 0])
+    assert got == want
+    assert got[0]["eval/sugar-crepe-mean-score"] == pytest.approx(np.mean(
+        [got[0][f"eval/sugar-crepe-{k}"] for k in SC_SPLITS + ("mean",)]))
+    assert set(got[-1]) == {"step", "eval/ImageNet_acc1", "eval/ImageNet_acc5",
+                            "eval/ImageNet_mean_per_class_recall"}
+    assert s.best_composition_score == js.best_composition_score
+
+
+def test_eval_hooks_leave_training_bit_for_bit(eval_sets, tmp_path):
+    """The tiny CLIP-FDT (IL on, 12 steps) with the SugarCREPE hook every 4
+    steps trains bit for bit as without it: the same losses and final
+    params. After each hook the model is back in train mode, and
+    ``imagenet_evaluate`` leaves every parameter as it was."""
+    a = port_solver("clip_fdt", True, tmp_path / "a")
+    b = port_solver("clip_fdt", True, tmp_path / "b")
+    b.config.saver["val_freq"] = 4
+    b.config.data["test"] = dict(eval_sets)
+    losses_a, losses_b = _losses(a), _losses(b)
+    modes, evaluate = [], b.evaluate
+
+    def spy(step):
+        out = evaluate(step)
+        modes.append((step, b.model.training, out is not None))
+        return out
+
+    b.evaluate = spy
+    a.train()
+    b.train()
+    assert modes == [(4, True, True), (8, True, True), (12, True, True)]
+    assert losses_b == losses_a and len(losses_a) == 12
+    for n, p in b.params.items():
+        assert torch.equal(p, a.params[n]), n
+    assert len(_eval_records(os.path.join(b.output_path, "metrics.jsonl"))) == 3
+    before = {n: p.detach().clone() for n, p in b.params.items()}
+    assert b.imagenet_evaluate(12) is not None and b.model.training
+    assert all(torch.equal(p, before[n]) for n, p in b.params.items())
 
 
 def test_solver_defaults_to_cuda(tmp_path, monkeypatch):
