@@ -134,14 +134,39 @@ Phase 12's checkpoints stay on disk for the eval suite:
    ``Solver.evaluate(8)`` on a Solver restored from ``ckpt_8`` must give the
    CLI's SugarCREPE metrics bit for bit and leave every parameter as it was.
 
-Every driven phase (4, 4b, 6, 7, 9, 10, 11, 12, 13) also resets the plain-route counters
+14. the rest of what a researcher does with the checkpoint, over phase 12's
+   ``ckpt_8``, shards and phase 13's data: (a) the CLI's
+   ``image_caption_selection`` (1000 coloured-shape scenes, each with its
+   true caption first and one swapped-attribute negative from
+   ``data/compositional.py``) and ``captioning`` (phase 13's retrieval set:
+   the best of its 5000 captions for each image, BLEU/ROUGE-L/CIDEr-D), 12
+   K2-fwd and 1 K1-fwd per encoder batch; (b) ``clip_fdt_vitb16`` at full
+   width (:func:`b16_config`: phase 4's block with ``image_encode: {use_flash:
+   true}``, bf16, seed 0) against the plain path from the same weights:
+   serving 256 images (S=197, T=196) and texts at ctx 32 and 77 (12 K3-fwd,
+   24 K2-fwd, 3 K1-fwd), then 3 train steps at bs 256, ctx 32, the first
+   against the plain path's (loss, every gradient at cosine >= 0.98), each
+   launching K3 12/12, K2 12/12 and K1 2/2/2, with embeds/s and pairs/s by
+   CUDA events and a profile of one more step; (c) ``return_attn`` on a
+   ``clip_vitb32_auxilary`` (phase 9's weights, K2 route) and on the B/16
+   model: nothing launched, rows summing to 1, the embeddings against the
+   kernel routes', ``extract_patch_ft`` / ``extract_word_ft``; (d) the port's
+   ``tools/run_codebook_viz.py`` over the checkpoint and shards (8 batches,
+   top 8, 32 codes: PNG grids and ``text_codes.json``), the kernel call's
+   pooled logits against the plain token maps, and ``tools/inference.py``'s
+   ``.npz`` against ``TorchEncoder`` bit for bit; (e) ``--model_type
+   ja_clip`` through the CLI on the card over a tiny HF directory built
+   offline, when ``transformers`` is installed (else it says so).
+
+Every driven phase (4, 4b, 6, 7, 9, 10, 11, 12, 13, 14) also resets the plain-route counters
 (``attention_route.plain_routes``, ``codebook_route.plain_routes``: a kernel
 knob that got the plain path) just before and requires them at 0 just
 after, so the main path never slips onto the plain route unseen.
 
 Any failure exits non-zero. The line before the last is the kernels JSON
-(each kernel's train-step launches, its launches in phase 11's and phase 12's runs
-and in phase 13's eval runs, error, times, bound and library time at its first shape),
+(each kernel's train-step launches, its launches in phase 11's and phase 12's runs,
+in phase 13's eval runs and in phase 14's runs, error, times, bound and library time
+at its first shape),
 the last ``{"ok": true, "device": {...}}``. All numbers also go to
 ``build/chip_smoke.json`` (git-ignored).
 """
@@ -1498,7 +1523,7 @@ def eval_data(root: str) -> None:
 
 def metrics_in_range(label: str, metrics) -> None:
     """Every metric finite and in its range: scores and recalls in [0, 1],
-    CREPE's ranks among its 6 candidates."""
+    CREPE's ranks among its 6 candidates, CIDEr-D (x10) in [0, 10]."""
     for key, value in metrics.items():
         if isinstance(value, dict):
             metrics_in_range(f"{label} {key}", value)
@@ -1507,17 +1532,151 @@ def metrics_in_range(label: str, metrics) -> None:
         elif key == "weight_decay":
             check(value in (0.0, 1e-6, 1e-4, 1e-2), f"eval {label}: weight decay {value}")
         else:
-            hi = 6.0 if "rank" in key else 1.0
+            hi = 6.0 if "rank" in key else 10.0 if key == "CIDEr" else 1.0
             check(np.isfinite(value) and 0.0 <= value <= hi,
                   f"eval {label}: {key} = {value} is not finite in [0, {hi}]")
+
+
+class EvalRuns:
+    """Runs of the eval CLI (``eval.cli.main``, in-process) or of a callable,
+    each with the launch and plain-route counters reset just before and read
+    just after: it must launch K2-fwd 12 times and K1-fwd once per encoder
+    batch and nothing else, take no plain route and give finite metrics in
+    range. Inside ``with``, the encoder's batch calls are fenced and timed
+    (host clock), and the host work beside them (loading, the dataset, the
+    tokenizer, preprocessing) is timed too. Each run's record goes to
+    ``row["runs"][label]``; ``total`` sums the launches of all runs."""
+
+    def __init__(self, counted, row, config, temperature, out, pretrained):
+        self.counted, self.row, self.config = counted, row, config
+        self.temperature, self.out, self.pretrained = temperature, out, pretrained
+        self.total = {name: 0 for name in counted}
+        self.stats, self.loads = {}, []
+
+    def __enter__(self):
+        from iterated_learning_for_vlm_tpu_torch.data.tokenizer import ClipTokenizer
+        from iterated_learning_for_vlm_tpu_torch.eval import builder, cli
+        from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder
+
+        stats, loads = self.stats, self.loads
+
+        def timed_batch(kind, fn):  # fenced: the caller copies the result to the host next
+            def call(self, *args, **kwargs):
+                if kind == "text":  # the context bucket the batch runs at
+                    ctx = str(args[0].shape[1])
+                    stats["text_ctx"][ctx] = stats["text_ctx"].get(ctx, 0) + 1
+                t0 = time.perf_counter()
+                out = fn(self, *args, **kwargs)
+                torch.cuda.synchronize()
+                stats[f"{kind}_s"] += time.perf_counter() - t0
+                stats[f"{kind}_batches"] += 1
+                return out
+            return call
+
+        def counted_items(kind, fn):
+            def call(self, items, *args, **kwargs):
+                stats[kind] += len(items)
+                return fn(self, items, *args, **kwargs)
+            return call
+
+        def timed(key, fn):  # the host work beside the batch calls
+            def call(*args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    stats[key] += time.perf_counter() - t0
+            return call
+
+        self._restore = [(TorchEncoder, name, getattr(TorchEncoder, name)) for name in
+                         ("image_batch", "text_batch", "encode_images", "encode_texts",
+                          "preprocess")]
+        self._restore += [(cli, "_load_encoder", cli._load_encoder),
+                          (builder, "build_dataset", builder.build_dataset),
+                          (ClipTokenizer, "__call__", ClipTokenizer.__call__)]
+        originals = {name: fn for _, name, fn in self._restore}
+        TorchEncoder.image_batch = timed_batch("image", originals["image_batch"])
+        TorchEncoder.text_batch = timed_batch("text", originals["text_batch"])
+        TorchEncoder.encode_images = counted_items("images", originals["encode_images"])
+        TorchEncoder.encode_texts = counted_items("texts", originals["encode_texts"])
+        TorchEncoder.preprocess = timed("preprocess_s", originals["preprocess"])
+        ClipTokenizer.__call__ = timed("tokenize_s", originals["__call__"])
+        builder.build_dataset = timed("dataset_s", originals["build_dataset"])
+        load_encoder = originals["_load_encoder"]
+        cli._load_encoder = timed("load_s",
+                                  lambda *a, **k: loads.append(1) or load_encoder(*a, **k))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._restore:
+            setattr(owner, name, fn)
+
+    def run(self, label, argv, batches, pretrained=None, batch_size=BATCH, fn=None):
+        """``argv`` through the CLI (or ``fn()``), which must make ``batches``
+        = (image, text) encoder batches. Returns its metrics."""
+        from iterated_learning_for_vlm_tpu_torch.eval import cli
+
+        counted, stats = self.counted, self.stats
+        stats.update(images=0, texts=0, image_batches=0, text_batches=0, image_s=0.0,
+                     text_s=0.0, load_s=0.0, dataset_s=0.0, tokenize_s=0.0, preprocess_s=0.0,
+                     text_ctx={})
+        self.loads.clear()
+        sync()
+        reset_counters(*counted.values())
+        reset_routes()
+        t0 = time.perf_counter()
+        if fn is None:
+            rec = cli.main(argv + ["--model_config", self.config, "--pretrained",
+                                   pretrained or self.pretrained, "--batch_size",
+                                   str(batch_size), "--sd_temperature", self.temperature,
+                                   "--output", self.out])
+            metrics = rec["metrics"]
+        else:
+            metrics = fn()
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counted.items()}
+        check_routes(f"eval {label}")
+        n = stats["image_batches"] + stats["text_batches"]
+        want = {name: 0 for name in counted} | {"tiny_attention_fwd": 12 * n,
+                                                 "codebook_pool_fwd": n}
+        check(launches == want, f"eval {label}: launches {launches}, expected {want} for "
+                                f"{n} encoder batches")
+        check((stats["image_batches"], stats["text_batches"]) == batches,
+              f"eval {label}: {stats['image_batches']} image and {stats['text_batches']} text "
+              f"batches, expected {batches}")
+        metrics_in_range(label, metrics)
+        enc_s = stats["image_s"] + stats["text_s"]
+        r = dict(stats, text_ctx=dict(stats["text_ctx"]), seconds=seconds,
+                 launches={k: v for k, v in launches.items() if v},
+                 images_per_s=stats["images"] / stats["image_s"] if stats["image_s"] else None,
+                 texts_per_s=stats["texts"] / stats["text_s"] if stats["text_s"] else None,
+                 host_share=1.0 - enc_s / seconds, models_loaded=len(self.loads),
+                 metrics=metrics)
+        self.row["runs"][label] = r
+        for name in counted:
+            self.total[name] += launches[name]
+        rates = "".join(f", {stats[k]} {k} ({stats[f'{k[:-1]}_batches']} batches, "
+                        f"{r[f'{k}_per_s']:.1f}/s through the encoder)"
+                        for k in ("images", "texts") if stats[k])
+        if stats["text_ctx"]:
+            rates += f", text batches by context {dict(sorted(stats['text_ctx'].items()))}"
+        host = {k[:-2]: stats[k] for k in ("load_s", "dataset_s", "tokenize_s", "preprocess_s")}
+        host["other"] = seconds - enc_s - sum(host.values())
+        r["host_s"] = host
+        log(f"eval {label}: {seconds:.2f} s{rates}; host share {r['host_share']:.1%} (the "
+            f"run's time outside the encoder's fenced batch calls: "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in host.items())
+            + f"); launches {r['launches']}; metrics {json.dumps(metrics)}")
+        return metrics
 
 
 def eval_phase(dev, counted, report, run_a, tmp):
     """Phase 13: the port's eval CLI (``eval.cli.main``) in-process on the card
     over phase 12's ``ckpt_8`` (and the soup of ``ckpt_5`` and ``ckpt_8``),
     then ``Solver.evaluate`` from ``ckpt_8``. Returns the launches of all its
-    runs together."""
-    from iterated_learning_for_vlm_tpu_torch.data.tokenizer import ClipTokenizer
+    runs together, and what phase 14 reuses: the data root, the model's YAML
+    config and the temperature."""
     from iterated_learning_for_vlm_tpu_torch.eval import builder, cli
     from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder
     from iterated_learning_for_vlm_tpu_torch.eval.prompts import PROMPT_80
@@ -1544,106 +1703,10 @@ def eval_phase(dev, counted, report, run_a, tmp):
     log(f"eval: data written in {row['data_s']:.1f} s; the model block of phase 12 at T "
         f"{temperature} (phase 12's log) from {os.path.basename(run_a['ckpts'][1])}")
 
-    stats = {}
-
-    def timed_batch(kind, fn):  # fenced: the caller copies the result to the host next
-        def call(self, *args, **kwargs):
-            if kind == "text":  # the context bucket the batch runs at
-                ctx = str(args[0].shape[1])
-                stats["text_ctx"][ctx] = stats["text_ctx"].get(ctx, 0) + 1
-            t0 = time.perf_counter()
-            out = fn(self, *args, **kwargs)
-            torch.cuda.synchronize()
-            stats[f"{kind}_s"] += time.perf_counter() - t0
-            stats[f"{kind}_batches"] += 1
-            return out
-        return call
-
-    def counted_items(kind, fn):
-        def call(self, items, *args, **kwargs):
-            stats[kind] += len(items)
-            return fn(self, items, *args, **kwargs)
-        return call
-
-    def timed(key, fn):  # the host work beside the batch calls
-        def call(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                stats[key] += time.perf_counter() - t0
-        return call
-
-    loads = []
-    originals = {name: getattr(TorchEncoder, name) for name in
-                 ("image_batch", "text_batch", "encode_images", "encode_texts", "preprocess")}
-    load_encoder, build_dataset, tokenize = cli._load_encoder, builder.build_dataset, \
-        ClipTokenizer.__call__
-    TorchEncoder.image_batch = timed_batch("image", originals["image_batch"])
-    TorchEncoder.text_batch = timed_batch("text", originals["text_batch"])
-    TorchEncoder.encode_images = counted_items("images", originals["encode_images"])
-    TorchEncoder.encode_texts = counted_items("texts", originals["encode_texts"])
-    TorchEncoder.preprocess = timed("preprocess_s", originals["preprocess"])
-    ClipTokenizer.__call__ = timed("tokenize_s", tokenize)
-    builder.build_dataset = timed("dataset_s", build_dataset)
-    cli._load_encoder = timed("load_s", lambda *a, **k: loads.append(1) or load_encoder(*a, **k))
-    total = {name: 0 for name in counted}
     out = os.path.join(root, "out", "{dataset}_{task}.json")
     ckpt_5, ckpt_8 = run_a["ckpts"]
-
-    def run(label, argv, batches, pretrained=ckpt_8, batch_size=BATCH, fn=None):
-        stats.update(images=0, texts=0, image_batches=0, text_batches=0, image_s=0.0,
-                     text_s=0.0, load_s=0.0, dataset_s=0.0, tokenize_s=0.0, preprocess_s=0.0,
-                     text_ctx={})
-        loads.clear()
-        sync()
-        reset_counters(*counted.values())
-        reset_routes()
-        t0 = time.perf_counter()
-        if fn is None:
-            rec = cli.main(argv + ["--model_config", config, "--pretrained", pretrained,
-                                   "--batch_size", str(batch_size), "--sd_temperature",
-                                   temperature, "--output", out])
-            metrics = rec["metrics"]
-        else:
-            metrics = fn()
-        sync()
-        seconds = time.perf_counter() - t0
-        launches = {name: c.launches for name, c in counted.items()}
-        check_routes(f"eval {label}")
-        n = stats["image_batches"] + stats["text_batches"]
-        want = {name: 0 for name in counted} | {"tiny_attention_fwd": 12 * n,
-                                                 "codebook_pool_fwd": n}
-        check(launches == want, f"eval {label}: launches {launches}, expected {want} for "
-                                f"{n} encoder batches")
-        check((stats["image_batches"], stats["text_batches"]) == batches,
-              f"eval {label}: {stats['image_batches']} image and {stats['text_batches']} text "
-              f"batches, expected {batches}")
-        metrics_in_range(label, metrics)
-        enc_s = stats["image_s"] + stats["text_s"]
-        r = dict(stats, text_ctx=dict(stats["text_ctx"]), seconds=seconds,
-                 launches={k: v for k, v in launches.items() if v},
-                 images_per_s=stats["images"] / stats["image_s"] if stats["image_s"] else None,
-                 texts_per_s=stats["texts"] / stats["text_s"] if stats["text_s"] else None,
-                 host_share=1.0 - enc_s / seconds, models_loaded=len(loads), metrics=metrics)
-        row["runs"][label] = r
-        for name in counted:
-            total[name] += launches[name]
-        rates = "".join(f", {stats[k]} {k} ({stats[f'{k[:-1]}_batches']} batches, "
-                        f"{r[f'{k}_per_s']:.1f}/s through the encoder)"
-                        for k in ("images", "texts") if stats[k])
-        if stats["text_ctx"]:
-            rates += f", text batches by context {dict(sorted(stats['text_ctx'].items()))}"
-        host = {k[:-2]: stats[k] for k in ("load_s", "dataset_s", "tokenize_s", "preprocess_s")}
-        host["other"] = seconds - enc_s - sum(host.values())
-        r["host_s"] = host
-        log(f"eval {label}: {seconds:.2f} s{rates}; host share {r['host_share']:.1%} (the "
-            f"run's time outside the encoder's fenced batch calls: "
-            + ", ".join(f"{k} {v:.2f} s" for k, v in host.items())
-            + f"); launches {r['launches']}; metrics {json.dumps(metrics)}")
-        return metrics
-
-    try:
+    with EvalRuns(counted, row, config, temperature, out, ckpt_8) as ev:
+        run = ev.run
         zs = run("zeroshot 1000 classes x 80 prompts",
                  ["eval", "--dataset", "wds/zs", "--dataset_root", f"{root}/zs", "--task",
                   "zeroshot_classification", "--template_set", "80"],
@@ -1737,11 +1800,7 @@ def eval_phase(dev, counted, report, run_a, tmp):
         check(same and untouched and solver.model.training,
               "eval: the Solver's hook differs from the CLI or changed the model")
         del solver, before
-    finally:
-        for name, fn in originals.items():
-            setattr(TorchEncoder, name, fn)
-        cli._load_encoder, builder.build_dataset = load_encoder, build_dataset
-        ClipTokenizer.__call__ = tokenize
+    total = ev.total
     gc.collect()
     torch.cuda.empty_cache()
     text_ctx = {}
@@ -1754,6 +1813,445 @@ def eval_phase(dev, counted, report, run_a, tmp):
     log(f"eval: phase 13 in {row['seconds']:.1f} s; launches of its runs {total}; encoder "
         f"batches: {row['image_batches']} image (S=50, T=49), text by context {text_ctx}")
     report["eval"] = row
+    return total, {"root": root, "config": config, "temperature": temperature}
+
+
+# -- phase 14: caption tasks, clip_fdt_vitb16, attention maps, the visualizer --------
+SELECT_IMAGES = 1000  # the retrieval set's size, each with one swapped-attribute negative
+VIZ_BATCHES, VIZ_TOPK, VIZ_CODES = 8, 8, 32
+# one clip_fdt_vitb16 train step on its kernel routes: K3 in the 12 image-tower
+# layers (S=197), K2 in the 12 text-tower layers, K1 in both heads (T=196 and 32)
+B16_TRAIN_LAUNCHES = {"tiny_attention_fwd": 12, "tiny_attention_bwd": 12,
+                      "codebook_pool_fwd": 2, "codebook_pool_bwd_dq": 2,
+                      "codebook_pool_bwd_dsd": 2, "flash_attention_fwd": 12,
+                      "flash_attention_bwd": 12}
+# serving 256 images and 256 texts at ctx 32 and at ctx 77
+B16_SERVE_LAUNCHES = {name: 0 for name in TRAIN_LAUNCHES} | {
+    "flash_attention_fwd": 12, "tiny_attention_fwd": 24, "codebook_pool_fwd": 3}
+B16_TRAIN_STEPS = 3
+
+
+def b16_config(kernels: bool) -> dict:
+    """``clip_fdt_vitb16`` at full width: phase 4's model block with the type
+    changed. Its image tower has S=197, past K2's 128, so the kernel routes
+    add ``image_encode: {use_flash: true}``: vision attention on K3, text
+    attention on K2, both heads on K1. ``kernels=False`` is the plain path."""
+    cfg = model_config(kernels)
+    cfg["type"] = "clip_fdt_vitb16"
+    if kernels:
+        cfg["kwargs"]["image_encode"]["use_flash"] = True
+    return cfg
+
+
+def selection_data(root: str) -> str:
+    """1000 coloured-shape scenes (224 px), each with its true caption first and
+    one swapped-attribute negative (``data/compositional.py:negative_pair``,
+    colour and shape in turn), as a retrieval JSON; returns its path."""
+    from PIL import Image
+
+    from iterated_learning_for_vlm_tpu_torch.data import compositional as comp
+
+    def caption(pair):
+        return comp.caption_for(comp.COLOR_NAMES[pair[0]], comp.SHAPES[pair[1]])
+
+    pairs = comp.seen_pairs() + comp.unseen_pairs()
+    rng = np.random.default_rng((SEED, 15))
+    os.makedirs(f"{root}/select")
+    items = []
+    for k in range(SELECT_IMAGES):
+        c, s = pairs[k % len(pairs)]
+        Image.fromarray(comp.to_uint8(comp.draw(c, s, 224, rng))).save(
+            f"{root}/select/{k}.jpg", quality=92)
+        neg = comp.negative_pair(c, s, ("color", "shape")[k % 2], rng)
+        items.append({"image": f"{k}.jpg", "captions": [caption((c, s)), caption(neg)]})
+    with open(f"{root}/select.json", "w") as f:
+        json.dump(items, f)
+    return f"{root}/select.json"
+
+
+def counted_run(counted, label, fn, expected=None):
+    """``fn()`` with the launch and plain-route counters reset just before and
+    read just after; requires ``expected`` launches when given. Returns
+    (result, launches, seconds on the host clock)."""
+    sync()
+    reset_counters(*counted.values())
+    reset_routes()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    seconds = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counted.items()}
+    check_routes(label)
+    if expected is not None:
+        check(launches == expected, f"{label}: launches {launches}, expected {expected}")
+    return out, launches, seconds
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for name, n in launches.items():
+        total[name] += n
+
+
+def b16_phase(dev, counted, report, smi, total):
+    """Phase 14b: ``clip_fdt_vitb16`` at full width, kernel routes against the
+    plain path from the same weights: serving 256 images and texts, then
+    ``B16_TRAIN_STEPS`` train steps at bs 256, ctx 32 (the first against the
+    plain path's step). Returns the kernel-route model, for the attention
+    maps."""
+    from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder
+    from iterated_learning_for_vlm_tpu_torch.models import model_entry
+    from torch.profiler import ProfilerActivity, profile
+
+    row = {}
+    model = model_entry(b16_config(True), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED))
+    plain = model_entry(b16_config(False), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    plain.load_state_dict(model.state_dict())
+    check(tuple(model.visual.positional_embedding.shape) == (197, 768)
+          and model.visual.transformer.resblocks[0].attn.use_flash
+          and not model.encode_text.transformer.resblocks[0].attn.use_flash,
+          "B/16: the image tower is not ViT-B/16 on the flash route")
+    enc = TorchEncoder(model, batch_size=BATCH, text_buckets=(16, 32),
+                       sd_temperature=SD_TEMPERATURE)
+    enc_plain = TorchEncoder(plain, batch_size=BATCH, text_buckets=(16, 32),
+                             sd_temperature=SD_TEMPERATURE)
+    rng = np.random.default_rng((SEED, 16))
+    images = rng.standard_normal((BATCH, 224, 224, 3), dtype=np.float32)
+    tok32, pad32 = make_texts(rng, BATCH, 77, 32)
+    tok77, pad77 = make_texts(rng, BATCH, 77, 77)
+
+    def serve(e):
+        return (e.encode_images(images), e.encode_texts_tokens(tok32, pad32),
+                e.encode_texts_tokens(tok77, pad77))
+
+    serve(enc)  # first call: library set-up, outside the counted run
+    outs, launches, _ = counted_run(counted, "B/16 serve", lambda: serve(enc),
+                                    B16_SERVE_LAUNCHES)
+    add_launches(total, launches)
+    row["serve_launches"] = launches
+    log(f"B/16 serve: {BATCH} images (S=197, T=196) + {BATCH} texts @ctx32 + {BATCH} texts "
+        f"@ctx77; launches {launches}")
+    for name, got, ref in zip(("image", "text_ctx32", "text_ctx77"), outs, serve(enc_plain)):
+        check(got.shape == (BATCH, 512) and bool(np.isfinite(got).all()),
+              f"B/16 {name} embeddings are malformed")
+        norm_err = float(np.abs(np.linalg.norm(got, axis=-1) - 1).max())
+        cos = float(cosines(got, ref).min())
+        row[name] = {"min_cos_vs_plain": cos, "max_norm_err": norm_err}
+        log(f"B/16 serve {name}: finite, |norm-1| max {norm_err:.2e} (tol {NORM_ATOL}), min "
+            f"cosine vs plain path {cos:.6f} (bound {EMBED_MIN_COS})")
+        check(norm_err <= NORM_ATOL and cos >= EMBED_MIN_COS,
+              f"B/16 {name} embeddings disagree with the plain path")
+    x_img = torch.from_numpy(images).to(dev)
+    t32, p32 = (torch.from_numpy(a[:, :32]).to(dev) for a in (tok32, pad32))
+    t77, p77 = (torch.from_numpy(a).to(dev) for a in (tok77, pad77))
+    timing = {}
+    for name, fast_fn, plain_fn in (
+            ("image", lambda: enc.image_batch(x_img), lambda: enc_plain.image_batch(x_img)),
+            ("text_ctx32", lambda: enc.text_batch(t32, p32),
+             lambda: enc_plain.text_batch(t32, p32)),
+            ("text_ctx77", lambda: enc.text_batch(t77, p77),
+             lambda: enc_plain.text_batch(t77, p77))):
+        plain_ms, ms = paired_ms(plain_fn, fast_fn, iters=5)
+        timing[name] = {"ms": ms, "plain_ms": plain_ms, "embeds_per_s": BATCH / ms * 1e3,
+                        "plain_embeds_per_s": BATCH / plain_ms * 1e3}
+        log(f"timing B/16 {name} bs{BATCH}: kernel routes {ms:.3f} ms "
+            f"({timing[name]['embeds_per_s']:.1f} embeds/s), plain path {plain_ms:.3f} ms "
+            f"({timing[name]['plain_embeds_per_s']:.1f} embeds/s) [{smi}]")
+    row["serve_timing"] = timing
+    del enc, enc_plain, x_img, t77, p77
+
+    batch32 = train_batch(dev, rng, 32)
+    step_launches, row["train_step"], (state_k, step_k), (state_p, step_p) = train_phase(
+        model, plain, batch32, counted, B16_TRAIN_LAUNCHES, label="CLIP-FDT B/16 train step")
+    add_launches(total, step_launches)
+    del state_p, step_p, plain
+    gc.collect()  # the plain path's blocks stay in the allocator's cache for these steps
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(B16_TRAIN_STEPS)]
+
+    def steps():
+        events[0].record()
+        losses = []
+        for event in events[1:]:
+            losses.append(step_k(state_k, batch32, TRAIN_TEMPERATURE)["loss"])
+            event.record()
+        return [x.item() for x in losses]
+
+    losses, launches, _ = counted_run(
+        counted, "B/16 train steps", steps,
+        {k: (B16_TRAIN_STEPS - 1) * v for k, v in B16_TRAIN_LAUNCHES.items()})
+    add_launches(total, launches)
+    check(all(np.isfinite(losses)), f"B/16 train losses {losses} are not finite")
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    ms = sum(step_ms) / len(step_ms)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_k(state_k, batch32, TRAIN_TEMPERATURE)
+        sync()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    shares = {}
+    for key, pattern in (("k3", "flash_attention"), ("k1", "codebook_pool"),
+                         ("k2", "tiny_attention")):
+        shares[key] = sum(e.self_device_time_total for e in kernels if pattern in e.key) / 1e3
+    row["train_timing"] = {"ms": ms, "step_ms": step_ms, "pairs_per_s": BATCH / ms * 1e3,
+                           "losses": losses,
+                           "launches_steps_2_3": launches, "device_ms": device_ms,
+                           "kernel_ms": shares}
+    log(f"timing CLIP-FDT B/16 train steps 2-{B16_TRAIN_STEPS} bs{BATCH} ctx32 (kernel "
+        f"routes, CUDA events): {ms:.3f} ms a step ({BATCH / ms * 1e3:.1f} pairs/s; each "
+        f"{[round(t, 3) for t in step_ms]} ms); launches "
+        f"{launches}; losses {[round(x, 5) for x in losses]} [{smi}]")
+    log(f"profile CLIP-FDT B/16 train step ctx32 (one more step): {device_ms:.3f} ms of device "
+        f"time; K3 {shares['k3']:.3f} ms, K1 {shares['k1']:.3f} ms, K2 {shares['k2']:.3f} ms\n"
+        + events.table(sort_by="cuda_time_total", row_limit=15, max_name_column_width=60))
+    report["b16"] = row
+    del state_k, step_k, batch32, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return model
+
+
+def attention_maps_phase(dev, counted, report, b16_model):
+    """Phase 14c: ``return_attn`` and the token features on the card, on a
+    ``clip_vitb32_auxilary`` with phase 9's CLIP weights (the K2 route) and on
+    the B/16 CLIP-FDT: the maps come from the plain path (nothing launched,
+    no plain route counted), each row sums to 1, and the embeddings match the
+    kernel routes' call."""
+    from iterated_learning_for_vlm_tpu_torch.models import model_entry
+
+    rng = np.random.default_rng((SEED, 17))
+    aux = model_entry(clip_config("k2", "clip_vitb32_auxilary"), device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(SEED))
+    x = torch.from_numpy(rng.standard_normal((BATCH, 224, 224, 3), dtype=np.float32)).to(dev)
+    tok, pad = (torch.from_numpy(a).to(dev) for a in make_texts(rng, BATCH, 77, 77))
+    rows = {}
+    for name, model in (("CLIP B/32 auxilary", aux), ("CLIP-FDT B/16", b16_model)):
+        model.eval()
+        with torch.inference_mode():
+            ref_v, ref_t = model.visual(x)["embed"], model.encode_text(tok, pad)["embed"]
+            (vis, txt), launches, _ = counted_run(
+                counted, f"attention maps {name}",
+                lambda: (model.visual(x, return_attn=True),
+                         model.encode_text(tok, pad, return_attn=True)),
+                {k: 0 for k in counted})
+            patch = model.extract_patch_ft(x)
+            word, mask = model.extract_word_ft(tok[:, :32], pad[:, :32])
+        grid = model.vision_cfg.input_resolution // model.vision_cfg.patch_size
+        s = grid * grid + 1
+        aw, tw = vis["attn_weights"], txt["attn_weights"]
+        check(aw.shape == (12, BATCH, s, s) and tw.shape == (12, BATCH, 77, 77)
+              and vis["cls_attn"].shape == (12, BATCH, s), f"{name}: attention map shapes")
+        row_err = max((w.sum(-1) - 1).abs().max().item() for w in (aw, tw))
+        cos = min(torch.nn.functional.cosine_similarity(a.float(), b["embed"].float(), dim=-1)
+                  .min().item() for a, b in ((ref_v, vis), (ref_t, txt)))
+        feats_ok = (patch.shape[:2] == (BATCH, s - 1) and word.shape[:2] == (BATCH, 32)
+                    and mask is not None and bool(torch.isfinite(patch).all())
+                    and bool(torch.isfinite(word).all()))
+        rows[name] = {"attn_shape": list(aw.shape), "max_row_sum_err": row_err,
+                      "min_embed_cos_vs_kernel_route": cos, "patch_ft": list(patch.shape),
+                      "word_ft": list(word.shape)}
+        log(f"attention maps {name}: attn_weights {list(aw.shape)} / text {list(tw.shape)} "
+            f"fp32 on the plain path, launches {launches} (none), rows sum to 1 within "
+            f"{row_err:.2e} (tol 1e-3); embed min cosine vs the kernel routes {cos:.6f} (bound "
+            f"{EMBED_MIN_COS}); extract_patch_ft {list(patch.shape)}, extract_word_ft "
+            f"{list(word.shape)}, finite {feats_ok}")
+        check(row_err <= 1e-3 and cos >= EMBED_MIN_COS and feats_ok
+              and torch.equal(vis["cls_attn"], aw[:, :, 0, :]),
+              f"attention maps {name} are malformed or disagree with the kernel routes")
+        del vis, txt, aw, tw, patch, word
+    report["attention_maps"] = rows
+    del aux, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def viz_phase(dev, counted, report, run_a, ev_info, tmp, total):
+    """Phase 14d: the port's ``tools/run_codebook_viz.py`` over phase 12's
+    ``ckpt_8`` and shards; the pooled logits of the kernel call against the
+    plain ``return_token_att`` call; ``tools/inference.py:dump_features``
+    against ``TorchEncoder`` bit for bit."""
+    from PIL import Image
+
+    from iterated_learning_for_vlm_tpu_torch.data.pipeline import get_unshuffled_wds_dataset
+    from iterated_learning_for_vlm_tpu_torch.eval.model_loader import load_eval_encoder
+    from iterated_learning_for_vlm_tpu_torch.models.sparsemax import sparsemax_bisect
+    from iterated_learning_for_vlm_tpu_torch.ops import codebook_attention as cb
+    from iterated_learning_for_vlm_tpu_torch.tools import inference, run_codebook_viz
+
+    import yaml
+
+    row = {}
+    ckpt_8 = run_a["ckpts"][1]
+    train = run_a["config"]["data"]["train"]
+    check("data_path" in train, "viz: phase 12 ran on synthetic data, no shards to sweep")
+    cfg_path = os.path.join(tmp, "viz.yaml")
+    with open(cfg_path, "w") as f:
+        yaml.safe_dump(run_a["config"], f)
+    out = os.path.join(tmp, "code_viz")
+    # per batch: the token maps (12 K2-fwd), the pooled weights (12 K2-fwd, 1
+    # K1-fwd) and the captions (12 K2-fwd, 1 K1-fwd)
+    want = {name: 0 for name in counted} | {"tiny_attention_fwd": 36 * VIZ_BATCHES,
+                                             "codebook_pool_fwd": 2 * VIZ_BATCHES}
+    wrote, launches, seconds = counted_run(
+        counted, "codebook viz", lambda: run_codebook_viz.run(
+            ["--config", cfg_path, "--ckpt", ckpt_8, "--out", out, "--batches",
+             str(VIZ_BATCHES), "--topk", str(VIZ_TOPK), "--max_codes", str(VIZ_CODES)]), want)
+    add_launches(total, launches)
+    with open(wrote["text_codes"]) as f:
+        codes = json.load(f)
+    grids_ok = all(os.path.getsize(p) > 0 and Image.open(p).size[0] > 0 for p in wrote["grids"])
+    row["viz"] = {"seconds": seconds, "grids": len(wrote["grids"]), "text_codes": len(codes),
+                  "launches": {k: v for k, v in launches.items() if v}}
+    log(f"viz: run_codebook_viz over {os.path.basename(ckpt_8)}: {VIZ_BATCHES} batches of "
+        f"{train['batch_size']} from phase 12's shards, --topk {VIZ_TOPK}, --max_codes "
+        f"{VIZ_CODES}: rendered {len(wrote['grids'])} PNG grids and text_codes.json with "
+        f"{len(codes)} codes in {seconds:.2f} s; launches {row['viz']['launches']}")
+    check(0 < len(wrote["grids"]) <= VIZ_CODES and grids_ok and codes,
+          "viz: no grid or caption codes written")
+
+    # the kernel call's pooled logits and weights against the plain token maps
+    enc = load_eval_encoder(cfg_path, ckpt_8, batch_size=BATCH, device=dev)
+    model = enc.model
+    temp = model.fdt_cfg.sd_temperature
+    dcfg = dict(train, workers=0, wire_dtype="float32")
+    x = torch.from_numpy(next(iter(get_unshuffled_wds_dataset(dcfg).dataloader))["image"]).to(dev)
+    with torch.inference_mode():
+        token_att, _ = model.extract_img_sd_ft(x, return_token_att=True)
+        weights, _ = model.extract_img_sd_ft(x)
+        q = model.img_query_model.q_map(model._patches(x).to(model.dtype))
+        pooled = cb.codebook_pool_fwd(q.contiguous(), model.space_dict.to(q.dtype).contiguous(),
+                                      None, temp)[0]
+    # an image's token maps are the unscaled q.sd products (no pad mask to apply)
+    ref = token_att.amax(dim=1) * model.fdt_cfg.sd_dim ** -0.5 / temp
+    err = (pooled - ref).abs()
+    bound = POOL_ATOL + POOL_RTOL * ref.abs()
+    w_err = (weights - sparsemax_bisect(ref)).abs().max().item()
+    w_tol = 2 * bound.max().item()
+    row["pooled"] = {"max_abs_err": err.max().item(), "weights_max_abs_err": w_err,
+                     "weights_tol": w_tol}
+    log(f"viz: pooled logits of the kernel call vs the plain return_token_att call at T=49, "
+        f"T {temp}: max abs err {err.max().item():.3e} (tol {POOL_ATOL} + {POOL_RTOL}*|ref|); "
+        f"the weights {w_err:.3e} (tol {w_tol:.3e}: sparsemax moves a weight by at most twice "
+        f"the largest logit change)")
+    check(bool(torch.all(err <= bound)) and w_err <= w_tol,
+          "viz: the kernel's pooled weights disagree with the plain token maps")
+    del token_att, weights, q, pooled, ref, x
+
+    # the feature dump against the encoder, bit for bit
+    root = ev_info["root"]
+    enc = load_eval_encoder(ev_info["config"], ckpt_8, batch_size=BATCH,
+                            sd_temperature=float(ev_info["temperature"]), device=dev)
+    with open(f"{root}/ret.json") as f:
+        items = json.load(f)[:BATCH]
+    images = [Image.open(f"{root}/ret/{it['image']}").convert("RGB") for it in items]
+    texts = [it["captions"][0] for it in items]
+    path, launches, seconds = counted_run(
+        counted, "feature dump",
+        lambda: inference.dump_features(enc, images, texts, os.path.join(tmp, "features.npz")),
+        {name: 0 for name in counted} | {"tiny_attention_fwd": 24, "codebook_pool_fwd": 2})
+    add_launches(total, launches)
+    z = np.load(path)
+    same = (np.array_equal(z["image_embeds"], enc.encode_images(images))
+            and np.array_equal(z["text_embeds"], enc.encode_texts(texts)))
+    row["dump"] = {"seconds": seconds, "equal": same}
+    log(f"viz: dump_features of {BATCH} images and {BATCH} captions in {seconds:.2f} s: the "
+        f".npz equals TorchEncoder's outputs bit for bit: {same}")
+    check(same, "viz: the feature dump differs from the encoder's outputs")
+    report["viz"] = row
+    del enc, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def hf_phase(dev, report, tmp):
+    """Phase 14e: ``--model_type ja_clip`` through ``eval.cli.main`` on the card
+    over a tiny rinna-shaped HF directory built offline, when ``transformers``
+    is installed."""
+    if importlib.util.find_spec("transformers") is None:
+        log("hf_adapter: not run (transformers not installed)")
+        report["hf_adapter"] = None
+        return
+    from transformers import (
+        BertConfig, BertTokenizer, CLIPImageProcessor, CLIPVisionConfig,
+        VisionTextDualEncoderConfig, VisionTextDualEncoderModel,
+    )
+
+    from iterated_learning_for_vlm_tpu_torch.eval import cli
+
+    torch.manual_seed(SEED)
+    d = os.path.join(tmp, "hf_ja_clip")
+    vision = CLIPVisionConfig(hidden_size=32, intermediate_size=64, num_hidden_layers=1,
+                              num_attention_heads=2, image_size=32, patch_size=16)
+    text = BertConfig(vocab_size=32, hidden_size=32, num_hidden_layers=1,
+                      num_attention_heads=2, intermediate_size=64, max_position_embeddings=64)
+    VisionTextDualEncoderModel(VisionTextDualEncoderConfig.from_vision_text_configs(
+        vision, text, projection_dim=16)).save_pretrained(d)
+    with open(os.path.join(d, "vocab.txt"), "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "cat", "dog",
+                           "photo", "of", "the", "##s"]))
+    BertTokenizer(os.path.join(d, "vocab.txt")).save_pretrained(d)
+    CLIPImageProcessor(size={"shortest_edge": 32},
+                       crop_size={"height": 32, "width": 32}).save_pretrained(d)
+    loaded = []
+    load_encoder = cli._load_encoder
+    cli._load_encoder = lambda *a, **k: loaded.append(load_encoder(*a, **k)) or loaded[-1]
+    try:
+        t0 = time.perf_counter()
+        rec = cli.main(["eval", "--model_type", "ja_clip", "--pretrained", d, "--dataset",
+                        "dummy", "--batch_size", "8", "--quiet"])
+        seconds = time.perf_counter() - t0
+    finally:
+        cli._load_encoder = load_encoder
+    on_card = bool(loaded) and all(p.device.type == "cuda"
+                                   for p in loaded[0].model.parameters())
+    report["hf_adapter"] = {"seconds": seconds, "metrics": rec["metrics"], "on_card": on_card}
+    log(f"hf_adapter: --model_type ja_clip through eval.cli.main in {seconds:.2f} s: metrics "
+        f"{json.dumps(rec['metrics'])}; parameters on the card: {on_card}")
+    check(on_card, "hf_adapter: the HF model's parameters are not on the card")
+    metrics_in_range("hf_adapter", rec["metrics"])
+
+
+def phase14(dev, counted, report, run_a, ev_info, tmp, smi):
+    """Phase 14: the caption tasks over phase 12's ``ckpt_8``, ``clip_fdt_vitb16``
+    at full width, the attention maps and token features, the codebook
+    visualizer and the feature dump, and the HF adapter. Returns the launches
+    of its driven runs together."""
+    t_phase = time.perf_counter()
+    total = {name: 0 for name in counted}
+    root = ev_info["root"]
+    t0 = time.perf_counter()
+    select = selection_data(root)
+    row = {"data_s": time.perf_counter() - t0, "runs": {}}
+    log(f"captions: {SELECT_IMAGES} selection scenes written in {row['data_s']:.1f} s")
+    out = os.path.join(root, "out14", "{dataset}_{task}.json")
+    with EvalRuns(counted, row, ev_info["config"], ev_info["temperature"], out,
+                  run_a["ckpts"][1]) as ev:
+        sel = ev.run(f"image_caption_selection {SELECT_IMAGES} images x 2 captions",
+                     ["eval", "--dataset", f"retrieval_json:{select}", "--dataset_root",
+                      f"{root}/select", "--task", "image_caption_selection"],
+                     (-(-SELECT_IMAGES // BATCH), -(-2 * SELECT_IMAGES // BATCH)))
+        cap = ev.run(f"captioning {RET_IMAGES} images x {len(RET_TEMPLATES)} captions",
+                     ["eval", "--dataset", f"retrieval_json:{root}/ret.json", "--dataset_root",
+                      f"{root}/ret", "--task", "captioning"],
+                     (-(-RET_IMAGES // BATCH), -(-RET_IMAGES * len(RET_TEMPLATES) // BATCH)))
+    check(set(sel) == {"acc"} and set(cap) == {"Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4",
+                                                  "ROUGE_L", "CIDEr"},
+          f"captions: metrics {sorted(sel)} / {sorted(cap)}")
+    add_launches(total, ev.total)
+    report["captions_eval"] = row
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    b16_model = b16_phase(dev, counted, report, smi, total)
+    attention_maps_phase(dev, counted, report, b16_model)
+    del b16_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    viz_phase(dev, counted, report, run_a, ev_info, tmp, total)
+    hf_phase(dev, report, tmp)
+    report["phase14"] = {"seconds": time.perf_counter() - t_phase, "launches": total}
+    log(f"phase 14 in {report['phase14']['seconds']:.1f} s; launches of its driven runs {total}")
     return total
 
 
@@ -2020,7 +2518,9 @@ def main() -> int:
         pipeline_launches, run_a = pipeline_phase(dev, counted, report, tmp)
         gc.collect()
         torch.cuda.empty_cache()
-        eval_launches = eval_phase(dev, counted, report, run_a, tmp)
+        eval_launches, ev_info = eval_phase(dev, counted, report, run_a, tmp)
+        # 14. caption tasks, clip_fdt_vitb16, attention maps, the visualizer
+        phase14_launches = phase14(dev, counted, report, run_a, ev_info, tmp, smi)
 
     report["seconds_total"] = time.perf_counter() - t_start
     out_dir = REPO / "build"
@@ -2044,7 +2544,8 @@ def main() -> int:
                                                          "bound_by", "library_ms")},
                         "shape": rows[0]["case"], "launches_solver": solver_launches[name],
                         "launches_pipeline": pipeline_launches[name],
-                        "launches_eval": eval_launches[name]})
+                        "launches_eval": eval_launches[name],
+                        "launches_phase14": phase14_launches[name]})
         serving = clip_serve_launches if flash else launches
         if serving.get(name):
             kernels[-1]["launches_serving"] = serving[name]

@@ -4,10 +4,10 @@ Counterpart of ``iterated_learning_for_vlm_tpu/eval/cli.py``: the same
 subcommands, flags, records and ``--output`` templates. The JAX-only
 ``--platform`` / ``--cpu_devices`` flags become ``--device`` (as in
 ``ilvlm-train-torch``): the model runs on the CUDA card unless ``--device``
-names another device, and without a card it raises. Not ported yet, and
-raising ``NotImplementedError``: the ``image_caption_selection`` and
-``captioning`` tasks (ROADMAP.md Queue 1 item 4a), ``--model_type
-ja_clip/nllb_clip`` (item 4b) and ``--distributed`` (item 5, DDP).
+names another device, and without a card it raises. ``--model_type
+ja_clip/nllb_clip`` loads a local HF ``save_pretrained`` directory given as
+``--pretrained`` (``eval/hf_adapter.py``). Not ported yet, and raising
+``NotImplementedError``: ``--distributed`` (ROADMAP.md Queue 1 item 5, DDP).
 
 Parity target: reference ``CLIP_benchmark/clip_benchmark/cli.py`` — the
 ``eval`` subcommand iterating model x dataset, dispatching by task and
@@ -132,7 +132,9 @@ def _expand_pretrained_models(entries):
 
 
 def cmd_eval(args):
-    if not args.model_config and not getattr(args, "pretrained_model", None):
+    hf_type = getattr(args, "model_type", "cust_clip") in ("ja_clip", "nllb_clip")
+    if not args.model_config and not getattr(args, "pretrained_model", None) \
+            and not hf_type:  # HF types: --pretrained IS the model
         raise SystemExit("eval needs --model_config or --pretrained_model")
     if getattr(args, "pretrained_model", None):
         import copy
@@ -200,6 +202,8 @@ def cmd_eval(args):
                                                include_val=bool(args.val_split)))
         if encoder is None and not skip_model:
             encoder = _load_encoder(args, language=language)
+        if encoder is not None and hasattr(encoder, "set_language"):
+            encoder.set_language(language)  # nllb_clip src-lang per language
         ds = apply_language(ds, language, lang_root=args.language_root or None)
         custom_names = _custom_override(args.custom_classname_file, dataset)
         if custom_names:
@@ -227,10 +231,15 @@ def cmd_eval(args):
         elif task == "zeroshot_retrieval":
             metrics = evaluate_retrieval(encoder, ds.images, ds.captions_per_image,
                                          recall_ks=tuple(args.recall_k))
-        elif task in ("image_caption_selection", "captioning"):
-            raise NotImplementedError(
-                f"task {task!r} (eval/caption_selection.py, eval/captioning.py) is not "
-                "ported to the PyTorch package (ROADMAP.md Queue 1 item 4a)")
+        elif task == "image_caption_selection":
+            from .caption_selection import evaluate_caption_selection
+
+            metrics = evaluate_caption_selection(encoder, ds.images,
+                                                 ds.captions_per_image)
+        elif task == "captioning":
+            from .captioning import evaluate_captioning
+
+            metrics = evaluate_captioning(encoder, ds.images, ds.captions_per_image)
         elif task == "linear_probe":
             from .linear_probe import evaluate_linear_probe
 
@@ -372,7 +381,9 @@ def build_parser():
                              " cust_clip: this framework's / reference training"
                              " checkpoints; open_clip: local OpenAI/open_clip"
                              " .pt state dicts (layout auto-converted);"
-                             " ja_clip / nllb_clip: not ported (raise).")
+                             " ja_clip / nllb_clip: a LOCAL HF save_pretrained"
+                             " directory passed via --pretrained (zero-egress"
+                             " stand-in for the reference's network loaders).")
         sp.add_argument("--pretrained", default=None,
                         help="torch checkpoint (.pth.tar / .pth / .pt); "
                              "comma-separated list = weight soup")
@@ -505,12 +516,13 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     model_type = getattr(args, "model_type", "cust_clip")
-    if model_type in ("ja_clip", "nllb_clip"):
-        raise NotImplementedError(
-            f"--model_type {model_type} (eval/hf_adapter.py) is not ported to the PyTorch "
-            "package (ROADMAP.md Queue 1 item 4b)")
-    if getattr(args, "_config_required", False) and not getattr(args, "model_config", None):
+    hf_type = model_type in ("ja_clip", "nllb_clip")
+    if getattr(args, "_config_required", False) and not hf_type \
+            and not getattr(args, "model_config", None):
         build_parser().error(f"--model_config is required for --model_type {model_type}")
+    if hf_type and not getattr(args, "pretrained", None):
+        build_parser().error("--model_type ja_clip/nllb_clip needs --pretrained "
+                             "pointing at a local HF save_pretrained directory")
     return args.fn(args)
 
 

@@ -10,7 +10,8 @@ The port reads torch-format checkpoints only: its own ``ckpt_N.pth.tar``
 (``train/checkpoint.py``) and reference or OpenAI/open_clip ``.pth`` /
 ``.pth.tar`` / ``.pt`` state dicts. A JAX (Orbax) checkpoint directory is
 refused. The model is built on ``device``, the CUDA card by default
-(``models.resolve_device``).
+(``models.resolve_device``). ``ja_clip`` / ``nllb_clip`` load a local HF
+``save_pretrained`` directory through ``eval/hf_adapter.py`` instead.
 """
 from __future__ import annotations
 
@@ -72,12 +73,17 @@ def load_eval_encoder(
     the plain path. ``model_type="open_clip"`` forces the OpenAI/open_clip key
     rename; ``cust_clip`` detects that layout. ``encoder``: a
     ``TorchEncoder`` from an earlier call (same config) whose model takes the
-    new weights in place. ``language`` only serves the HF model types, which
-    are not ported."""
+    new weights in place. ``ja_clip`` / ``nllb_clip``: ``checkpoint`` is one
+    local HF ``save_pretrained`` directory, ``config`` is unused and
+    ``language`` sets the NLLB tokenizer's source language."""
     if model_type in ("ja_clip", "nllb_clip"):
-        raise NotImplementedError(
-            f"--model_type {model_type} (eval/hf_adapter.py) is not ported to the PyTorch "
-            "package (ROADMAP.md Queue 1 item 4b)")
+        from .hf_adapter import HFClipEncoder
+
+        if not checkpoint or isinstance(checkpoint, (list, tuple)):
+            raise ValueError(f"--model_type {model_type} needs --pretrained pointing at ONE "
+                             "local HF save_pretrained directory")
+        return HFClipEncoder(str(checkpoint), model_type=model_type, batch_size=batch_size,
+                             normalize=normalize, language=language, device=device)
     if data_parallel:
         raise NotImplementedError("data-parallel eval comes with DDP (ROADMAP.md Queue 1 "
                                   "item 5)")

@@ -7,8 +7,10 @@ tower-wide knobs) and returns an ``nn.Module`` whose parameters live on
 ``device`` and are drawn from ``generator``. With no ``device`` the model is
 built on the CUDA card, and building raises where there is none: the CPU
 takes it only when asked (``device="cpu"``). Ported so far: the baseline
-``clip_vitb32`` and ``clip_vitb16`` and ``clip_fdt_vitb32``; the other JAX
-model types raise a ``KeyError`` that says so.
+``clip_vitb32`` and ``clip_vitb16``, ``clip_vitb32_auxilary`` (the same
+model: the towers give attention maps on request, ``return_attn``) and
+``clip_fdt_vitb32`` / ``clip_fdt_vitb16``; the other JAX model types raise a
+``KeyError`` that says so.
 """
 from __future__ import annotations
 
@@ -36,14 +38,16 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.b
 UNPORTED = (
     "clip_vitL14", "clip_vitL16", "clip_res50", "clip_res101",
     "clip_swinB_v2", "clip_swinL", "clip_swinL_v2", "clip_swinMoE_B", "clip_swinMLP_B",
-    "clip_swin_yaml", "clip_fdt_vitb16", "clip_fdt_swinB_v2", "clip_vitb32_sp",
-    "clip_vitb32_auxilary", "clip_fdt_sp_vitb32", "declip_fdt_vitb32", "defilip_fdt_vitb32",
+    "clip_swin_yaml", "clip_fdt_swinB_v2", "clip_vitb32_sp", "clip_fdt_sp_vitb32",
+    "declip_fdt_vitb32", "defilip_fdt_vitb32",
 )
 
 
 def _common(kwargs: Mapping[str, Any]):
     """The JAX ``_common`` knob parsing: tower-wide knobs become per-tower
-    defaults. The TPU-only knobs still parse; the towers ignore them."""
+    defaults, so an ``image_encode`` / ``text_encode`` key overrides its
+    tower-wide value (``image_encode: {use_flash: true}`` puts one tower on
+    flash attention). The TPU-only knobs still parse; the towers ignore them."""
     img_kw = dict(kwargs.get("image_encode", {}))
     txt_kw = dict(kwargs.get("text_encode", {}))
     for dead in ("bpe_path", "text_encode_type", "text_model_utils"):
@@ -94,16 +98,35 @@ def clip_vitb16(device=None, **kw) -> CLIP:
     return _clip(vit_b16, kw, device)
 
 
-def clip_fdt_vitb32(device=None, **kw) -> CLIPFDT:
+def clip_vitb32_auxilary(device=None, **kw) -> CLIP:
+    """Reference ``clip_vitb32_auxilary`` (the towers with attention-probs
+    hooks): here ``clip_vitb32`` itself, whose towers return the maps on
+    request (``return_attn=True``); checkpoints are interchangeable."""
+    return _clip(vit_b32, kw, device)
+
+
+def _clip_fdt(vision_factory, kw, device) -> CLIPFDT:
     img_kw, txt_kw, dtype = _common(kw)
     fdt_kw = dict(kw.get("fdt", {}))
     fdt_kw.pop("use_allgather", None)
-    return CLIPFDT(vision_cfg=vit_b32(**img_kw), text_cfg=text_base(**txt_kw),
+    return CLIPFDT(vision_cfg=vision_factory(**img_kw), text_cfg=text_base(**txt_kw),
                    fdt_cfg=FDTConfig(**fdt_kw), dtype=dtype, device=resolve_device(device))
 
 
+def clip_fdt_vitb32(device=None, **kw) -> CLIPFDT:
+    return _clip_fdt(vit_b32, kw, device)
+
+
+def clip_fdt_vitb16(device=None, **kw) -> CLIPFDT:
+    """ViT-B/16 image tower: T=196 codebook tokens (K1 takes any T) and S=197,
+    past K2's 128, so on the card its attention runs on K3 only with
+    ``image_encode: {use_flash: true}``."""
+    return _clip_fdt(vit_b16, kw, device)
+
+
 _REGISTRY = {"clip_vitb32": clip_vitb32, "clip_vitb16": clip_vitb16,
-             "clip_fdt_vitb32": clip_fdt_vitb32}
+             "clip_vitb32_auxilary": clip_vitb32_auxilary,
+             "clip_fdt_vitb32": clip_fdt_vitb32, "clip_fdt_vitb16": clip_fdt_vitb16}
 
 
 def model_entry(config, device=None, generator: Optional[torch.Generator] = None):

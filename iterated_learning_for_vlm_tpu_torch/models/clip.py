@@ -59,6 +59,16 @@ class CLIP(nn.Module):
         """images: [B, H, W, 3] NHWC -> [B, embed_dim] in the model's dtype."""
         return self.visual(images)["embed"]
 
+    def extract_patch_ft(self, images: torch.Tensor) -> torch.Tensor:
+        """Projected patch tokens [B, grid^2, E]: ln_post and ``proj`` applied
+        to each patch token (reference ``CLIP.extract_patch_ft``)."""
+        return self.visual(images)["patches_proj"]
+
+    def extract_word_ft(self, tokens: torch.Tensor, pad_mask=None):
+        """Projected word tokens [B, ctx, E] and the pad mask (reference
+        ``CLIP.extract_word_ft``)."""
+        return self.encode_text(tokens, pad_mask)["words_proj"], pad_mask
+
     def forward(self, images, tokens, pad_mask=None):
         image = self.encode_image(images)
         text = self.encode_text(tokens, pad_mask)["embed"]

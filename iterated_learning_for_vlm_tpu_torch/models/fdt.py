@@ -185,6 +185,16 @@ class CLIPFDT(nn.Module):
                                     mask=pad_mask, temperature=self._temperature(temperature),
                                     return_token_att=return_token_att)
 
+    def extract_patch_ft(self, images):
+        """Query-projected patch tokens [B, T, sd_dim] (reference
+        ``clip_fdt.py:341-354``)."""
+        return self.img_query_model.q_map(self._patches(images).to(self.dtype))
+
+    def extract_word_ft(self, tokens, pad_mask):
+        """Query-projected word tokens [B, ctx, sd_dim] and the pad mask
+        (reference ``clip_fdt.py:357-365``)."""
+        return self.txt_query_model.q_map(self.encode_text.words(tokens).to(self.dtype)), pad_mask
+
     def forward(self, images, tokens, pad_mask=None, sd_temperature=None):
         t = self._temperature(sd_temperature)
         img_att, sd_img_ft = self.img_query_model(self._patches(images), self.space_dict,

@@ -18,10 +18,13 @@ computes in its ``dtype`` (bf16 for serving), as the flax modules do.
   :func:`attention_route` decides from the input's dtype and shape: on a CUDA
   device a kernel route needs bf16 and head width 64 (and S <= 1024 for K3),
   else the call takes the plain path and ``attention_route.plain_routes``
-  counts it.
+  counts it. A call that asks for the attention probabilities
+  (``return_weights``) takes the plain path, as in JAX, and is not counted:
+  no kernel route was refused.
 - ``Transformer`` is a plain ``nn.ModuleList``: the JAX scan, remat and unroll
   are XLA compile strategies, so their knobs are accepted and ignored, as are
-  the TPU tiling knobs of the fused attention kernel.
+  the TPU tiling knobs of the fused attention kernel. It can also return each
+  layer's output and head-averaged attention probabilities, stacked.
 
 Every module with parameters of its own has ``init_weights(generator)``;
 ``init_module_tree`` runs them in registration order.
@@ -160,8 +163,17 @@ class MultiheadAttention(nn.Module):
             self.in_proj_bias.zero_()
             self.out_proj.bias.zero_()
 
-    def forward(self, x: torch.Tensor, causal: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, causal: bool = False, return_weights: bool = False):
+        """``x [B, S, D]`` -> ``[B, S, D]``; with ``return_weights``, the pair
+        ``(out, weights)``: the plain path's fp32 probabilities averaged over
+        heads, ``[B, S, S]``."""
         b, s, d = x.shape
+        if return_weights:  # the plain path, as in JAX; no kernel route was refused
+            qkv, _ = packed_in_proj(x, self.in_proj_weight, self.in_proj_bias, self.dtype)
+            out, weights = attention_reference(qkv, self.heads,
+                                               causal_bias(s, x.device) if causal else None,
+                                               return_weights=True)
+            return self.out_proj(out), weights
         route = attention_route(self.use_flash, self.fused_attn, s, d // self.heads,
                                 self.dtype, x.device)
         qkv, in_bias = packed_in_proj(x, self.in_proj_weight, self.in_proj_bias,
@@ -217,9 +229,15 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNorm(width, dtype=dtype, device=device)
         self.mlp = MLP(width, fc_std, proj_std, dtype=dtype, device=device)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln_1(x), causal=self.causal)
-        return x + self.mlp(self.ln_2(x))
+    def forward(self, x, return_weights: bool = False):
+        """``x`` -> the block's output; with ``return_weights``, the pair
+        ``(output, head-averaged attention probabilities [B, S, S])``."""
+        attn = self.attn(self.ln_1(x), causal=self.causal, return_weights=return_weights)
+        if return_weights:
+            attn, weights = attn
+        x = x + attn
+        x = x + self.mlp(self.ln_2(x))
+        return (x, weights) if return_weights else x
 
 
 class Transformer(nn.Module):
@@ -247,7 +265,26 @@ class Transformer(nn.Module):
                                    device=device)
             for _ in range(layers)])
 
-    def forward(self, x):
+    def forward(self, x, return_hidden_states: bool = False,
+                return_attn_weights: bool = False):
+        """``return_hidden_states`` also returns each layer's output stacked
+        as ``[L, B, S, D]``; ``return_attn_weights`` each layer's
+        head-averaged attention probabilities as ``[L, B, S, S]``, and then
+        the call returns the triple ``(x, hidden_or_None, attn)`` (JAX
+        ``Transformer.__call__``)."""
+        if not (return_hidden_states or return_attn_weights):
+            for block in self.resblocks:
+                x = block(x)
+            return x
+        hidden, attn = [], []
         for block in self.resblocks:
-            x = block(x)
-        return x
+            if return_attn_weights:
+                x, w = block(x, return_weights=True)
+                attn.append(w)
+            else:
+                x = block(x)
+            hidden.append(x)
+        hidden = torch.stack(hidden) if return_hidden_states else None
+        if return_attn_weights:
+            return x, hidden, torch.stack(attn)
+        return x, hidden

@@ -70,25 +70,38 @@ class TextTransformer(nn.Module):
         scaled_normal(self.text_projection.weight, self.cfg.width ** -0.5, generator)
         torch_bias_uniform(self.text_projection.bias, self.cfg.width, generator)
 
-    def words(self, tokens: torch.Tensor) -> torch.Tensor:
-        """``words`` [B, ctx, W]: ln_final over all tokens, the FDT input.
-        Eager PyTorch runs every output it is asked for, so the codebook path
-        calls this and skips the projections ``forward`` adds."""
+    def words(self, tokens: torch.Tensor, return_attn: bool = False):
+        """``words`` [B, ctx, W]: ln_final over all tokens, the FDT input (and,
+        with ``return_attn``, the per-layer attention probabilities
+        [L, B, ctx, ctx]). Eager PyTorch runs every output it is asked for,
+        so the codebook path calls this and skips the projections
+        ``forward`` adds."""
         x = self.token_embedding(tokens).to(self.dtype)
         if self.positional_embedding is not None:
             x = x + self.positional_embedding[: x.shape[1]].to(self.dtype)
+        if return_attn:
+            x, _, attn = self.transformer(x, return_attn_weights=True)
+            return self.ln_final(x), attn
         return self.ln_final(self.transformer(x))
 
-    def forward(self, tokens: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> dict:
+    def forward(self, tokens: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+                return_attn: bool = False) -> dict:
         """tokens: int [B, ctx]; pad_mask: float [B, ctx] (0 real / -inf pad),
         passed through. Returns ``embed`` [B, E], ``words`` [B, ctx, W],
-        ``words_proj``, ``pooled_raw`` [B, W] (EOT feature)."""
-        words = self.words(tokens)
+        ``words_proj``, ``pooled_raw`` [B, W] (EOT feature); ``return_attn``
+        adds ``attn_weights`` [L, B, ctx, ctx] (each layer's head-averaged
+        attention probabilities, fp32, from the plain path)."""
+        words = self.words(tokens, return_attn)
+        if return_attn:
+            words, attn = words
         eot = tokens.argmax(dim=-1)
         pooled_raw = words[torch.arange(words.shape[0], device=words.device), eot]
-        return {"embed": self.text_projection(pooled_raw), "words": words,
-                "words_proj": self.text_projection(words), "pooled_raw": pooled_raw,
-                "pad_mask": pad_mask}
+        out = {"embed": self.text_projection(pooled_raw), "words": words,
+               "words_proj": self.text_projection(words), "pooled_raw": pooled_raw,
+               "pad_mask": pad_mask}
+        if return_attn:
+            out["attn_weights"] = attn
+        return out
 
 
 def text_base(embed_dim=512, **kw) -> TextConfig:

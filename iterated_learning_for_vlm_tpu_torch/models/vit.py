@@ -88,29 +88,45 @@ class VisionTransformer(nn.Module):
         scaled_normal(self.positional_embedding, 0.01, generator)
         scaled_normal(self.proj, scale, generator)
 
-    def tokens(self, images: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, 3] NHWC -> transformer output [B, grid^2 + 1, W]. Eager
-        PyTorch runs every output it is asked for, so the codebook path calls
-        this and skips ln_post and the projections ``forward`` adds."""
+    def tokens(self, images: torch.Tensor, return_attn: bool = False):
+        """[B, H, W, 3] NHWC -> transformer output [B, grid^2 + 1, W] (and,
+        with ``return_attn``, the per-layer attention probabilities
+        [L, B, S, S]). Eager PyTorch runs every output it is asked for, so
+        the codebook path calls this and skips ln_post and the projections
+        ``forward`` adds."""
         dt = self.dtype
         x = self.conv1(images)
         b, gh, gw, w = x.shape
         x = x.reshape(b, gh * gw, w)
         cls = self.class_embedding.to(dt).expand(b, 1, w)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dt)
+        if return_attn:
+            x, _, attn = self.transformer(self.ln_pre(x), return_attn_weights=True)
+            return x, attn
         return self.transformer(self.ln_pre(x))
 
-    def forward(self, images: torch.Tensor) -> dict:
+    def forward(self, images: torch.Tensor, return_attn: bool = False) -> dict:
         """images: [B, H, W, 3] NHWC. Returns ``embed`` [B, E], ``patches``
         [B, grid^2, W] (dense tokens BEFORE ln_post, what FDT consumes),
-        ``pooled_raw`` [B, W] (CLS after ln_post) and ``patches_proj``."""
-        x = self.tokens(images)
+        ``pooled_raw`` [B, W] (CLS after ln_post) and ``patches_proj``.
+
+        ``return_attn`` adds ``attn_weights`` [L, B, S, S] (each layer's
+        head-averaged attention probabilities, fp32, from the plain path) and
+        ``cls_attn`` [L, B, S] (the CLS query's row: the reference
+        ``*_auxilary`` towers' ``att[:, 0]``)."""
+        x = self.tokens(images, return_attn)
+        if return_attn:
+            x, attn = x
         patches = x[:, 1:, :]
         ln_all = self.ln_post(x)
         pooled_raw = ln_all[:, 0, :]
         proj = self.proj.to(self.dtype)
-        return {"embed": pooled_raw @ proj, "patches": patches, "pooled_raw": pooled_raw,
-                "patches_proj": ln_all[:, 1:, :] @ proj}
+        out = {"embed": pooled_raw @ proj, "patches": patches, "pooled_raw": pooled_raw,
+               "patches_proj": ln_all[:, 1:, :] @ proj}
+        if return_attn:
+            out["attn_weights"] = attn
+            out["cls_attn"] = attn[:, :, 0, :]
+        return out
 
 
 # Factory configs mirroring the reference factory dims.

@@ -65,9 +65,11 @@ def _softmax(logits: torch.Tensor, masked: bool) -> torch.Tensor:
 
 
 def attention_reference(qkv: torch.Tensor, heads: int,
-                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        bias: Optional[torch.Tensor] = None, return_weights: bool = False):
     """Plain packed-QKV attention: fp32 logits and softmax, operand-dtype
-    value product (``xla_attention_reference``)."""
+    value product (``xla_attention_reference``). With ``return_weights`` it
+    returns ``(out, weights)``, the fp32 probabilities averaged over heads
+    ``[B, S, S]`` (JAX ``MultiheadAttention(return_weights=True)``)."""
     b, s, three_d = qkv.shape
     d = three_d // 3
     hd = d // heads
@@ -76,8 +78,10 @@ def attention_reference(qkv: torch.Tensor, heads: int,
     if bias is not None:
         logits = logits + bias.float()
     w = _softmax(logits, bias is not None)
-    out = torch.einsum("bhqk,bkhc->bqhc", w.to(qkv.dtype), v)
-    return out.reshape(b, s, d)
+    out = torch.einsum("bhqk,bkhc->bqhc", w.to(qkv.dtype), v).reshape(b, s, d)
+    if return_weights:
+        return out, w.mean(dim=1)
+    return out
 
 
 def _full_bias(bias: Optional[torch.Tensor], causal: bool, s: int, device):

@@ -717,18 +717,15 @@ def test_loader_options_match_jax(ckpts, jax_encoders):
 
 
 def test_loader_refusals(ckpts, tmp_path):
-    """A JAX (Orbax) checkpoint directory, the spectral-norm types, the HF
-    types and data-parallel eval raise; with no device named and no card,
-    the loader raises instead of building on the CPU."""
+    """A JAX (Orbax) checkpoint directory, the spectral-norm types and
+    data-parallel eval raise; with no device named and no card, the loader
+    raises instead of building on the CPU."""
     with pytest.raises(ValueError, match="torch-format checkpoints only"):
         port_load(CONFIGS["fdt"], str(tmp_path))
     cfg = load_config(CONFIGS["clip"])
     cfg.model["type"] = "clip_vitb32_sp"
     with pytest.raises(NotImplementedError, match="spectral norm"):
         port_load(cfg, None)
-    for model_type in ("ja_clip", "nllb_clip"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
-            port_load(CONFIGS["clip"], str(tmp_path), model_type=model_type)
     with pytest.raises(NotImplementedError, match="DDP"):
         port_load(CONFIGS["clip"], None, data_parallel=True)
     if not torch.cuda.is_available():
@@ -1027,15 +1024,9 @@ def test_cli_probe_cache_val_split_no_normalize(port_cli, tmp_path, monkeypatch)
 
 
 def test_cli_refusals_and_device(port_cli, capsys):
-    """The unported tasks and model types and --distributed raise and name
-    their roadmap items; --quiet silences the progress line; without
-    --device and without a card the CLI raises instead of running on the CPU."""
-    for task in ("image_caption_selection", "captioning"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4a"):
-            port_cli(["eval", "--dataset", "dummy", "--task", task])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4b"):
-        port_cli(["eval", "--dataset", "dummy", "--model_type", "nllb_clip",
-                  "--pretrained", "x"])
+    """--distributed raises and names DDP; --quiet silences the progress line;
+    without --device and without a card the CLI raises instead of running on
+    the CPU."""
     with pytest.raises(NotImplementedError, match="DDP"):
         port_cli(["sugar_crepe", "--data_root", "x", "--image_root", "x", "--distributed"])
     capsys.readouterr()

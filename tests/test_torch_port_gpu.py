@@ -1076,3 +1076,117 @@ def test_eval_hook_leaves_training_bit_for_bit(dev, tmp_path, monkeypatch):
     before = {n: p.detach().clone() for n, p in b.params.items()}
     assert b.imagenet_evaluate(6) is not None and b.model.training
     assert all(torch.equal(p, before[n]) for n, p in b.params.items())
+
+
+# -- clip_fdt_vitb16, attention maps and the HF adapter on the card -------------------
+def _b16_cfg(kernels):
+    """A narrow bf16 ``clip_fdt_vitb16`` (two layers a tower, head width 64)
+    at the full 224-px grid: T = 196 codebook tokens and S = 197 in the image
+    tower. ``kernels``: the smoke's routing, the tower-wide ``fused_attn``
+    with ``image_encode: {use_flash: true}`` and K1 in both heads."""
+    return {"type": "clip_fdt_vitb16", "kwargs": {
+        "image_encode": {"width": 128, "layers": 2, "heads": 2, "embed_dim": 64,
+                         "use_flash": kernels},
+        "text_encode": {"context_length": 20, "vocab_size": 300, "width": 128, "heads": 2,
+                        "layers": 2, "embed_dim": 64},
+        "fdt": {"sd_num": 256, "sd_dim": 64, "raw_img_ft_dim": 128, "raw_txt_ft_dim": 128,
+                "sparsemax_method": "bisect", "use_fused_kernel": kernels,
+                "sd_temperature": 2.0},
+        "fused_attn": kernels, "dtype": "bfloat16"}}
+
+
+def test_clip_fdt_vitb16_kernel_routes_match_plain(dev):
+    """The kernel routes (K3 at S=197 in the image tower, K2 in the text
+    tower, K1 at T=196 and the text T) against the plain routes from the same
+    weights: embeddings at cosine >= 0.999, every gradient at >= 0.98, the
+    bf16 bound of the full-size steps (at S=197 the positional embedding's
+    gradient, a sum over 197 tokens of 5 samples, lay at 0.9896 on the
+    H100); launches of one forward and backward: K2 2 / 2, K1 2 / 2 / 2,
+    K3 2 / 2, and no plain route."""
+    fast = model_entry(_b16_cfg(True), device=dev, generator=_gen(0))
+    plain = model_entry(_b16_cfg(False), device=dev, generator=_gen(1))
+    plain.load_state_dict(fast.state_dict())
+    _, _, (_, tokens, pad) = _small_pair(dev)
+    images = torch.randn(5, 224, 224, 3, generator=_gen(3), device=dev)
+    before = _counts()
+    got = _grads_of(fast, (images, tokens, pad))
+    torch.cuda.synchronize()
+    assert _deltas(before) == ([2, 2, 2, 2, 2, 2, 2], 0, 0)
+    _assert_paths_agree(got, _grads_of(plain, (images, tokens, pad)), min_grad_cos=0.98)
+
+
+def test_return_attn_on_the_card(dev):
+    """``return_attn`` on the bf16 towers of a kernel-route CLIP-FDT B/16 and
+    a CLIP B/32 on the K2 route: the plain path, so nothing is launched and
+    no plain route is counted; fp32 rows summing to 1 within 1e-3; the
+    embeddings at cosine >= 0.999 from the kernel route's."""
+    clip_cfg = {"type": "clip_vitb32_auxilary", "kwargs": {
+        "image_encode": {"input_resolution": 64, "width": 128, "layers": 2, "heads": 2,
+                         "embed_dim": 64},
+        "text_encode": {"context_length": 20, "vocab_size": 300, "width": 128, "heads": 2,
+                        "layers": 2, "embed_dim": 64},
+        "fused_attn": True, "dtype": "bfloat16"}}
+    _, _, (_, tokens, pad) = _small_pair(dev)
+    for cfg, res in ((_b16_cfg(True), 224), (clip_cfg, 64)):
+        model = model_entry(cfg, device=dev, generator=_gen(0)).eval()
+        images = torch.randn(3, res, res, 3, generator=_gen(4), device=dev)
+        with torch.no_grad():
+            ref_v, ref_t = model.visual(images), model.encode_text(tokens, pad)
+            before = _counts()
+            vis = model.visual(images, return_attn=True)
+            txt = model.encode_text(tokens, pad, return_attn=True)
+            torch.cuda.synchronize()
+            assert _deltas(before) == ([0] * 7, 0, 0)
+        s = (res // (16 if res == 224 else 32)) ** 2 + 1
+        assert vis["attn_weights"].shape == (2, 3, s, s) and vis["cls_attn"].shape == (2, 3, s)
+        assert txt["attn_weights"].shape == (2, 5, 20, 20)
+        for w in (vis["attn_weights"], txt["attn_weights"]):
+            assert w.dtype == torch.float32
+            assert (w.sum(-1) - 1).abs().max().item() <= 1e-3
+        for a, b in ((ref_v["embed"], vis["embed"]), (ref_t["embed"], txt["embed"])):
+            cos = torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1)
+            assert cos.min().item() >= 0.999
+
+
+def test_hf_adapter_on_the_card(dev, tmp_path):
+    """``--model_type ja_clip`` on the card: the adapter's model lives there,
+    its embeddings match the CPU adapter's within 1e-4 (fp32, TF32 off), and
+    ``eval.cli.main`` with no device named scores through it."""
+    pytest.importorskip("transformers")
+    from PIL import Image
+    from transformers import (
+        BertConfig, BertTokenizer, CLIPImageProcessor, CLIPVisionConfig,
+        VisionTextDualEncoderConfig, VisionTextDualEncoderModel,
+    )
+
+    from iterated_learning_for_vlm_tpu_torch.eval import cli
+    from iterated_learning_for_vlm_tpu_torch.eval.hf_adapter import HFClipEncoder
+
+    torch.manual_seed(0)
+    d = str(tmp_path / "hf")
+    vision = CLIPVisionConfig(hidden_size=32, intermediate_size=64, num_hidden_layers=1,
+                              num_attention_heads=2, image_size=32, patch_size=16)
+    text = BertConfig(vocab_size=32, hidden_size=32, num_hidden_layers=1,
+                      num_attention_heads=2, intermediate_size=64, max_position_embeddings=64)
+    VisionTextDualEncoderModel(VisionTextDualEncoderConfig.from_vision_text_configs(
+        vision, text, projection_dim=16)).save_pretrained(d)
+    with open(f"{d}/vocab.txt", "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "cat", "dog",
+                           "photo", "of", "the", "##s"]))
+    BertTokenizer(f"{d}/vocab.txt").save_pretrained(d)
+    CLIPImageProcessor(size={"shortest_edge": 32},
+                       crop_size={"height": 32, "width": 32}).save_pretrained(d)
+    card, host = HFClipEncoder(d, batch_size=2), HFClipEncoder(d, batch_size=2, device="cpu")
+    assert card.device.type == "cuda"
+    assert all(p.device.type == "cuda" for p in card.model.parameters())
+    rng = np.random.default_rng(0)
+    images = [Image.fromarray(rng.integers(0, 255, (32, 32, 3), dtype=np.uint8))
+              for _ in range(3)]
+    texts = ["a photo of a cat", "a dog", "cats"]
+    np.testing.assert_allclose(card.encode_images(images), host.encode_images(images),
+                               atol=1e-4, rtol=0)
+    np.testing.assert_allclose(card.encode_texts(texts), host.encode_texts(texts),
+                               atol=1e-4, rtol=0)
+    rec = cli.main(["eval", "--model_type", "ja_clip", "--pretrained", d, "--dataset", "dummy",
+                    "--batch_size", "4", "--quiet"])
+    assert 0.0 <= rec["metrics"]["acc1"] <= 1.0

@@ -514,7 +514,8 @@ def test_port_imports_no_jax():
     ``chip_smoke.py`` imports jax, flax or the JAX package anywhere; and a
     fresh interpreter that imports its models, ops, encoder and training
     modules, the Solver and its launcher, the data pipeline and the host
-    utilities, runs the native augment, and encodes captions through
+    utilities, the caption tasks, the HF adapter and the visualizer and
+    feature-dump tools, runs the native augment, and encodes captions through
     ``TorchEncoder.encode_texts`` with no tokenizer given (the port's own,
     found on first use), has loaded none of them, nor ``regex``, nor ``yaml``
     (only ``load_config`` reads YAML)."""
@@ -544,6 +545,13 @@ def test_port_imports_no_jax():
         "import iterated_learning_for_vlm_tpu_torch.data.pipeline\n"
         "import iterated_learning_for_vlm_tpu_torch.data.samplers\n"
         "import iterated_learning_for_vlm_tpu_torch.tools.make_train_shards\n"
+        "import iterated_learning_for_vlm_tpu_torch.data.coco\n"
+        "import iterated_learning_for_vlm_tpu_torch.eval.caption_selection\n"
+        "import iterated_learning_for_vlm_tpu_torch.eval.captioning\n"
+        "import iterated_learning_for_vlm_tpu_torch.eval.hf_adapter\n"
+        "import iterated_learning_for_vlm_tpu_torch.tools.inference\n"
+        "import iterated_learning_for_vlm_tpu_torch.tools.run_codebook_viz\n"
+        "import iterated_learning_for_vlm_tpu_torch.tools.visualization\n"
         "from iterated_learning_for_vlm_tpu_torch.data import augment, native\n"
         "assert native.available()\n"
         "x = np.zeros((40, 50, 3), np.uint8)\n"
