@@ -158,15 +158,38 @@ Phase 12's checkpoints stay on disk for the eval suite:
    ja_clip`` through the CLI on the card over a tiny HF directory built
    offline, when ``transformers`` is installed (else it says so).
 
-Every driven phase (4, 4b, 6, 7, 9, 10, 11, 12, 13, 14) also resets the plain-route counters
+15. data parallel, each rank a child process of this script (its
+   ``--rank-job`` entry, :func:`rank_job`) launched through ``python -m
+   torch.distributed.run``, over phase 12's shards and checkpoints and
+   phase 13's eval sets: (a) two ranks share ``cuda:0`` over Gloo (NCCL
+   refuses two ranks on one device) and train :func:`ddp_config` through
+   ``cli_entry --multihost``: 128 rows a rank (256 in all), synced context
+   buckets, the IL reset after step 4, saves at 4 and 6 that rank 0 alone
+   writes. Every step of each rank launches the train step's kernels (0 K3,
+   0 plain routes) at the bucket of the longer of the ranks' longest
+   captions, with the same loss on both; the ranks' parameter digests are
+   equal after the reset and at the end; two new ranks resume from
+   ``ckpt_4`` and repeat steps 5-6 and the final parameters bit for bit.
+   (b) Run A's first step against one process's step on the same 256 rows
+   and weights: loss within 2e-3 relative, every gradient at cosine >=
+   0.98. (c) A world of one under NCCL (``--nproc_per_node 1``) against the
+   Solver with no group, 2 steps at 256: the losses bit for bit, both step
+   times. (d) The eval CLI's ``--distributed`` on two ranks over
+   ``ckpt_8``, zero-shot (1000 classes x 80 prompts) and retrieval: phase
+   13's metrics, 12 K2-fwd and 1 K1-fwd per encoder batch on each rank,
+   rank 0 alone printing and writing the record. It prints each rank's
+   step times (Gloo stages CUDA collectives through the host: no measure of
+   DDP speed), the gradient bytes all-reduced a step and the seconds.
+
+Every driven phase (4, 4b, 6, 7, 9, 10, 11, 12, 13, 14, 15) also resets the plain-route counters
 (``attention_route.plain_routes``, ``codebook_route.plain_routes``: a kernel
 knob that got the plain path) just before and requires them at 0 just
 after, so the main path never slips onto the plain route unseen.
 
 Any failure exits non-zero. The line before the last is the kernels JSON
 (each kernel's train-step launches, its launches in phase 11's and phase 12's runs,
-in phase 13's eval runs and in phase 14's runs, error, times, bound and library time
-at its first shape),
+in phase 13's eval runs, in phase 14's runs and on rank 0 in phase 15's run A,
+error, times, bound and library time at its first shape),
 the last ``{"ok": true, "device": {...}}``. All numbers also go to
 ``build/chip_smoke.json`` (git-ignored).
 """
@@ -2255,6 +2278,438 @@ def phase14(dev, counted, report, run_a, ev_info, tmp, smi):
     return total
 
 
+# -- phase 15: data parallel on the card --------------------------------------------
+DDP_STEPS = 6  # IL reset at 4 (reset_steps 2), the codebook held through 5, window end at 6
+DDP_SAVE = 4
+DDP_WORLD1_STEPS = 2
+DDP_LAUNCH_S = 300  # one launch's time limit; every rank's process is killed after it
+# parameters the FDT forward never reads, by their port names: no gradient on either side
+UNREAD_NAMES = ("visual.ln_post.weight", "visual.ln_post.bias", "visual.proj",
+                "encode_text.text_projection.weight", "encode_text.text_projection.bias",
+                "logit_scale_sd")
+DDP_LOSS_RTOL = 2e-3
+
+
+def ddp_config(train: dict, steps: int = DDP_STEPS) -> dict:
+    """Phase 15's config: phase 12's :func:`pipeline_config` over its shards,
+    ``steps`` steps, saves at 4 and at the end, and the IL schedule with
+    ``reset_steps`` 2, ``smooth_steps`` 1 and 3 resets: the text tower is
+    redrawn after step 4 (the first step that schedule can reset at), the
+    codebook is held and the vision tower frozen through step 5, and the
+    window closes at 6. ``batch_size`` is a rank's (128: 256 over two ranks)."""
+    cfg = pipeline_config(dict(train, batch_size=BATCH // 2))
+    cfg["lr_scheduler"]["kwargs"]["max_iter"] = steps
+    cfg["saver"] = {"print_freq": 1, "val_freq": 0, "save_freq": DDP_SAVE}
+    cfg["reset"] = {"enable": True, "reset_steps": 2, "reset_nums": 3, "smooth_steps": 1,
+                    "semantics": "reference"}
+    return cfg
+
+
+def params_digest(params) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(params):
+        h.update(name.encode())
+        h.update(params[name].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rank_job(spec_path: str) -> int:
+    """A phase-15 child: one rank (under ``torch.distributed.run``) or the one
+    process of a run without a group. ``spec["job"]``: ``train`` runs the
+    port's training launcher (``cli_entry.train_main(spec["argv"])``) with
+    spies on its Solver (each step fenced: its context, this rank's longest
+    caption, its loss, its launches and plain routes and its host ms; the
+    parameters' digest after step ``DDP_SAVE`` and at the end; the
+    checkpoint files this rank wrote; with ``capture`` the first step's batch
+    and averaged gradients, for the one-process comparison); ``eval`` joins
+    the group and runs the eval CLI with ``--distributed`` once for each
+    ``spec["runs"]`` entry. The record goes to ``spec["out"]/rank<r>.json``."""
+    sys.path.insert(0, str(REPO))
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from iterated_learning_for_vlm_tpu_torch.ops import codebook_attention as cb
+    from iterated_learning_for_vlm_tpu_torch.ops import flash_attention as fl
+    from iterated_learning_for_vlm_tpu_torch.ops import fused_attention as fa
+
+    counted = {"tiny_attention_fwd": fa.tiny_attention_fwd,
+               "tiny_attention_bwd": fa.tiny_attention_bwd,
+               "codebook_pool_fwd": cb.codebook_pool_fwd,
+               "codebook_pool_bwd_dq": cb.codebook_pool_bwd_dq,
+               "codebook_pool_bwd_dsd": cb.codebook_pool_bwd_dsd,
+               "flash_attention_fwd": fl.flash_attention_fwd,
+               "flash_attention_bwd": fl.flash_attention_bwd}
+
+    def counts():
+        return {name: fn.launches for name, fn in counted.items()}
+
+    def plain_routes():
+        return sum(fn.plain_routes for fn in route_counters())
+
+    rank = int(os.environ.get("RANK", 0))
+    rec = {"rank": rank, "world": int(os.environ.get("WORLD_SIZE", 1)), "steps": {}}
+    if spec["job"] == "train":
+        from iterated_learning_for_vlm_tpu_torch import cli_entry
+        from iterated_learning_for_vlm_tpu_torch.train import checkpoint as ckpt
+        from iterated_learning_for_vlm_tpu_torch.train import solver as solver_mod
+
+        base = solver_mod.Solver
+
+        class Spied(base):
+            def train(self):
+                step_fn, on_step = self.train_step, self.il.on_step
+
+                def spy_step(state, batch, temperature):
+                    step = state.step + 1
+                    sync()
+                    before, routes = counts(), plain_routes()
+                    t0 = time.perf_counter()
+                    metrics = step_fn(state, batch, temperature)
+                    sync()
+                    ms = 1e3 * (time.perf_counter() - t0)
+                    after = counts()
+                    rec["steps"][step] = {
+                        "ms": ms, "ctx": batch["tokens"].shape[1],
+                        "local_len": int((batch["pad_mask"] == 0).sum(1).max()),
+                        "loss": metrics["loss"].item(),
+                        "launches": {k: after[k] - before[k] for k in after},
+                        "plain_routes": plain_routes() - routes}
+                    if spec.get("capture") and step == 1:
+                        torch.save({k: v.cpu() for k, v in batch.items()},
+                                   os.path.join(spec["out"], f"batch{rank}.pt"))
+                        if rank == 0:
+                            torch.save({n: None if p.grad is None else p.grad.cpu()
+                                        for n, p in self.params.items()},
+                                       os.path.join(spec["out"], "grads.pt"))
+                    return metrics
+
+                def spy_il(state, step):
+                    state = on_step(state, step)
+                    if step == DDP_SAVE:
+                        rec["digest_after_reset"] = params_digest(self.params)
+                    return state
+
+                self.train_step, self.il.on_step = spy_step, spy_il
+                rec["grad_bytes"] = sum(p.numel() * p.element_size()
+                                        for p in self.model.parameters() if p.requires_grad)
+                rec["wrapped"] = type(self.train_model).__name__
+                rec["device"] = str(self.device)
+                reset_counters(*counted.values())
+                reset_routes()
+                t0 = time.perf_counter()
+                state = super().train()
+                rec["train_s"] = time.perf_counter() - t0
+                rec["launches"] = counts()
+                rec["plain_routes"] = plain_routes()
+                rec["digest_end"] = params_digest(self.params)
+                rec["found"] = ckpt.find_last_checkpoint(self.save_path)
+                return state
+
+        writes = []
+        write = ckpt._write
+
+        def spy_write(payload, targets):
+            writes.extend(targets)
+            return write(payload, targets)
+
+        solver_mod.Solver, ckpt._write = Spied, spy_write
+        try:
+            cli_entry.train_main(spec["argv"])
+        finally:
+            solver_mod.Solver, ckpt._write = base, write
+        rec["writes"] = writes
+    else:  # eval: every run through the CLI in one group
+        import contextlib
+        import io
+
+        from iterated_learning_for_vlm_tpu_torch.eval import cli
+        from iterated_learning_for_vlm_tpu_torch.parallel import mesh
+
+        mesh.init_data_parallel("gloo")
+        rec["runs"] = {}
+        dump = json.dump
+        for label, argv in spec["runs"].items():
+            dumps = []
+            json.dump = lambda *a, _d=dumps, **k: (_d.append(1), dump(*a, **k))[1]
+            out = io.StringIO()
+            sync()
+            reset_counters(*counted.values())
+            reset_routes()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    result = cli.main(argv)
+            finally:
+                json.dump = dump
+            sync()
+            rec["runs"][label] = {"seconds": time.perf_counter() - t0, "launches": counts(),
+                                  "plain_routes": plain_routes(), "metrics": result["metrics"],
+                                  "printed": out.getvalue(), "dumps": len(dumps)}
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def launch(label: str, spec: dict, nproc: int = 0):
+    """Run :func:`rank_job` on ``spec``: under ``python -m torch.distributed.run
+    --nproc_per_node nproc`` (``nproc`` > 0), else as one plain process.
+    Fails the phase when any rank fails or the launch outlasts its limit;
+    returns each rank's record and the launch's seconds."""
+    os.makedirs(spec["out"], exist_ok=True)
+    path = os.path.join(spec["out"], "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    head = ([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             str(nproc)] if nproc else [sys.executable])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(head + [str(REPO / "chip_smoke.py"), "--rank-job", path], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=DDP_LAUNCH_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+        check(False, f"ddp {label}: the launch outlasted {DDP_LAUNCH_S} s:\n{out[-4000:]}")
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"ddp {label}: a rank failed (exit {proc.returncode}):\n"
+                                f"{out[-6000:]}")
+    recs = []
+    for r in range(max(1, nproc)):
+        with open(os.path.join(spec["out"], f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs, seconds
+
+
+def check_train_ranks(label: str, recs, steps) -> None:
+    """Every rank: the train step's launches each step, no plain route, no K3;
+    the ranks' contexts, losses and parameter digests equal; each step's
+    context the bucket of the longest caption of all ranks."""
+    from iterated_learning_for_vlm_tpu_torch.data.pipeline import _bucket_for_len
+
+    for r in recs:
+        check(sorted(r["steps"], key=int) == [str(s) for s in steps],
+              f"ddp {label}: rank {r['rank']} ran steps {sorted(r['steps'], key=int)}")
+        for s, st in r["steps"].items():
+            check(st["launches"] == TRAIN_LAUNCHES | {"flash_attention_fwd": 0,
+                                                      "flash_attention_bwd": 0}
+                  and st["plain_routes"] == 0,
+                  f"ddp {label}: rank {r['rank']} step {s} launched {st['launches']}, "
+                  f"{st['plain_routes']} plain routes")
+    for s in map(str, steps):
+        lens = [r["steps"][s]["local_len"] for r in recs]
+        want = _bucket_for_len(max(lens), 77, (32, 77)) or 77
+        ctxs = [r["steps"][s]["ctx"] for r in recs]
+        check(ctxs == [want] * len(recs), f"ddp {label}: step {s} ran at contexts {ctxs}, "
+                                          f"expected {want} (longest captions {lens})")
+        losses = [r["steps"][s]["loss"] for r in recs]
+        check(len(set(losses)) == 1, f"ddp {label}: step {s} losses differ {losses}")
+    check(len({r["digest_end"] for r in recs}) == 1,
+          f"ddp {label}: the ranks' final parameters differ")
+
+
+def phase15(dev, report, run_a, ev_info, tmp, smi):
+    """Phase 15: data parallel on the card, every rank launched as a user
+    launches it. (a) two ranks sharing ``cuda:0`` over Gloo (NCCL refuses two
+    ranks on one device) train phase 12's config from its shards through
+    ``cli_entry --multihost``, 128 rows a rank, synced context buckets, the
+    IL reset after step 4 and saves at 4 and 6, then two new ranks resume
+    from ``ckpt_4``; (b) run A's first step against one process's step on
+    the same 256 rows and weights; (c) a world of one under NCCL against the
+    Solver with no group, 2 steps at 256; (d) the eval CLI's ``--distributed``
+    on two ranks over phase 12's ``ckpt_8``, against phase 13's records.
+    Returns rank 0's launches in run A."""
+    from iterated_learning_for_vlm_tpu_torch.train.solver import Solver
+    from iterated_learning_for_vlm_tpu_torch.utils.config import Config
+
+    import yaml
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.join(tmp, "ddp")
+    os.makedirs(root)
+    train = run_a["config"]["data"]["train"]
+    cfg = ddp_config(train)
+    config = os.path.join(root, "ddp.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    row = {"nvidia_smi": smi, "note": "two ranks share one card over Gloo, which stages every "
+           "CUDA collective through the host: these step times are no measure of DDP speed"}
+    gloo = ["--multihost", "--dist_backend", "gloo", "--device", str(dev)]
+
+    # (a) run A: 6 steps on two ranks; run B: two new ranks resume from ckpt_4
+    out_a = os.path.join(root, "a")
+    argv_a = ["--config", config, "--output_path", out_a, "--exp_name", "ddp"] + gloo
+    recs_a, row["a_seconds"] = launch("run A", {"job": "train", "argv": argv_a, "out": out_a,
+                                                "capture": True}, nproc=2)
+    steps = list(range(1, DDP_STEPS + 1))
+    check_train_ranks("run A", recs_a, steps)
+    check(all(r["wrapped"] == "DistributedDataParallel" and r["world"] == 2 for r in recs_a),
+          "ddp run A: the ranks did not train through DDP in a group of 2")
+    check(len({r["digest_after_reset"] for r in recs_a}) == 1,
+          "ddp run A: the ranks' parameters differ after the IL reset")
+    ckpt_dir = os.path.join(out_a, "ddp_Reset_True_steps_2_smooth_1", "checkpoints")
+    ckpt_4 = os.path.join(ckpt_dir, f"ckpt_{DDP_SAVE}.pth.tar")
+    want_writes = [ckpt_4, os.path.join(ckpt_dir, f"ckpt_{DDP_STEPS}.pth.tar")]
+    check(recs_a[0]["writes"] == want_writes and recs_a[1]["writes"] == [],
+          f"ddp run A: rank 0 wrote {recs_a[0]['writes']}, rank 1 {recs_a[1]['writes']}")
+    check(recs_a[0]["found"] == recs_a[1]["found"] == want_writes[1],
+          "ddp run A: the ranks found different last checkpoints")
+    ctxs = [recs_a[0]["steps"][str(s)]["ctx"] for s in steps]
+    row["a"] = {"ctx": ctxs, "losses": [recs_a[0]["steps"][str(s)]["loss"] for s in steps],
+                "step_ms": [[r["steps"][str(s)]["ms"] for s in steps] for r in recs_a],
+                "local_len": [[r["steps"][str(s)]["local_len"] for s in steps] for r in recs_a],
+                "launches": [r["launches"] for r in recs_a], "grad_bytes": recs_a[0]["grad_bytes"],
+                "train_s": [r["train_s"] for r in recs_a]}
+    log(f"ddp (a) run A: 2 ranks on cuda:0 over Gloo, {DDP_STEPS} steps of 128 rows a rank "
+        f"through cli_entry --multihost in {row['a_seconds']:.1f} s; each rank every step "
+        f"launched {TRAIN_LAUNCHES} (0 K3, 0 plain routes); contexts {ctxs} equal on both "
+        f"ranks, the bucket of the longer of the ranks' longest captions "
+        f"{row['a']['local_len']}; losses {[round(x, 5) for x in row['a']['losses']]} equal "
+        f"on both ranks; parameter digests equal after the reset at step {DDP_SAVE} and at "
+        f"the end; rank 0 alone wrote {[os.path.basename(w) for w in want_writes]}")
+    log(f"ddp (a) per-rank step ms (fenced, host clock; {smi}): "
+        + "; ".join(f"rank {r}: " + ", ".join(f"{x:.1f}" for x in ms)
+                    for r, ms in enumerate(row["a"]["step_ms"]))
+        + f"; gradient bytes all-reduced a step {row['a']['grad_bytes']} (4 x "
+        f"{row['a']['grad_bytes'] // 4} trainable parameters). {row['note']}")
+
+    out_b = os.path.join(root, "b")
+    argv_b = ["--config", config, "--output_path", out_b, "--exp_name", "ddp", "--ckpt_path",
+              ckpt_4] + gloo
+    recs_b, row["b_seconds"] = launch("run B", {"job": "train", "argv": argv_b, "out": out_b},
+                                      nproc=2)
+    rest = steps[DDP_SAVE:]
+    check_train_ranks("run B", recs_b, rest)
+    resumed = [recs_b[0]["steps"][str(s)]["loss"] for s in rest]
+    bitwise = (resumed == row["a"]["losses"][DDP_SAVE:]
+               and recs_b[0]["digest_end"] == recs_a[0]["digest_end"])
+    row["resume"] = {"losses": resumed, "bit_for_bit": bitwise, "writes": recs_b[0]["writes"]}
+    log(f"ddp (a) run B: 2 new ranks resumed from ckpt_{DDP_SAVE} in {row['b_seconds']:.1f} s: "
+        f"losses of steps {rest} {resumed} against run A's {row['a']['losses'][DDP_SAVE:]}, "
+        f"final parameters equal to run A's: bit for bit {bitwise}")
+    check(bitwise, "ddp run B: the two-rank resume did not repeat run A bit for bit")
+
+    # (b) run A's first step against one process's step on the same 256 rows
+    halves = [torch.load(os.path.join(out_a, f"batch{r}.pt"), weights_only=True) for r in (0, 1)]
+    batch = {k: torch.cat([h[k] for h in halves]).to(dev) for k in halves[0]}
+    grads = torch.load(os.path.join(out_a, "grads.pt"), weights_only=True)
+    one = Solver(Config(ddp_config(train) | {"data": {"train": dict(train, batch_size=BATCH)}}),
+                 output_path=os.path.join(root, "one"), exp_name="one", device=dev)
+    temperature = float(CC3M_T_DECAY["org_t"])
+    metrics = one.train_step(one.state, batch, temperature)
+    loss_one = metrics["loss"].item()
+    loss_ddp = row["a"]["losses"][0]
+    cos = {}
+    for n, p in one.params.items():
+        check((p.grad is None) == (grads[n] is None),
+              f"ddp (b): {n} has a gradient on one side only")
+        if p.grad is not None and n not in UNREAD_NAMES:
+            cos[n] = torch.nn.functional.cosine_similarity(
+                p.grad.float().flatten(), grads[n].to(dev).float().flatten(), dim=0).item()
+    worst = min(cos, key=cos.get)
+    rel = abs(loss_ddp - loss_one) / abs(loss_one)
+    row["vs_one_process"] = {"loss_ddp": loss_ddp, "loss_one": loss_one, "loss_rel": rel,
+                             "min_grad_cos": cos[worst], "min_grad_cos_param": worst,
+                             "ctx": batch["tokens"].shape[1]}
+    log(f"ddp (b) step 1 of run A (2 ranks x 128 rows) against one process's step on the same "
+        f"256 rows and weights: loss {loss_ddp:.6f} vs {loss_one:.6f} (relative {rel:.2e}, "
+        f"bound {DDP_LOSS_RTOL}); gradient min cosine {cos[worst]:.6f} ({worst}; bound "
+        f"{GRAD_MIN_COS}, the bf16 bound)")
+    check(rel <= DDP_LOSS_RTOL and cos[worst] >= GRAD_MIN_COS,
+          "ddp (b): the two-rank step disagrees with the one-process step")
+    del one, batch, grads, halves, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) a world of one under NCCL against the Solver with no group, bs 256
+    config1 = os.path.join(root, "world1.yaml")
+    cfg1 = ddp_config(train, DDP_WORLD1_STEPS)
+    cfg1["saver"]["save_freq"] = 0  # no checkpoint: only the steps are compared
+    with open(config1, "w") as f:
+        yaml.safe_dump(cfg1, f)
+    common = ["--config", config1, "--exp_name", "w1", "--batch_size", str(BATCH), "--device",
+              str(dev)]
+    recs_n, row["nccl_seconds"] = launch(
+        "world 1 NCCL", {"job": "train", "out": os.path.join(root, "nccl"),
+                         "argv": common + ["--output_path", os.path.join(root, "nccl"),
+                                           "--multihost"]}, nproc=1)
+    recs_p, row["plain_seconds"] = launch(
+        "no group", {"job": "train", "out": os.path.join(root, "plain"),
+                     "argv": common + ["--output_path", os.path.join(root, "plain")]})
+    w1 = list(range(1, DDP_WORLD1_STEPS + 1))
+    check_train_ranks("world 1 NCCL", recs_n, w1)
+    check_train_ranks("no group", recs_p, w1)
+    check(recs_n[0]["wrapped"] == "DistributedDataParallel" and recs_p[0]["wrapped"] == "CLIPFDT",
+          f"ddp (c): wrapped {recs_n[0]['wrapped']} / {recs_p[0]['wrapped']}")
+    ln = [recs_n[0]["steps"][str(s)]["loss"] for s in w1]
+    lp = [recs_p[0]["steps"][str(s)]["loss"] for s in w1]
+    row["world1"] = {"losses_nccl": ln, "losses_no_group": lp, "bit_for_bit": ln == lp,
+                     "max_abs_diff": max(abs(a - b) for a, b in zip(ln, lp)),
+                     "ctx": [recs_n[0]["steps"][str(s)]["ctx"] for s in w1],
+                     "step_ms_nccl": [recs_n[0]["steps"][str(s)]["ms"] for s in w1],
+                     "step_ms_no_group": [recs_p[0]["steps"][str(s)]["ms"] for s in w1],
+                     "device": recs_n[0]["device"]}
+    w = row["world1"]
+    log(f"ddp (c) a world of 1 under NCCL (torch.distributed.run --nproc_per_node 1, "
+        f"cli_entry --multihost, {w['device']}) against the Solver with no group, "
+        f"{DDP_WORLD1_STEPS} steps at bs {BATCH}, contexts {w['ctx']}: losses {ln} vs {lp}, "
+        f"bit for bit {w['bit_for_bit']} (largest difference {w['max_abs_diff']:.3e}); step ms "
+        f"(fenced; {smi}) with the group "
+        + ", ".join(f"{x:.1f}" for x in w["step_ms_nccl"]) + ", without "
+        + ", ".join(f"{x:.1f}" for x in w["step_ms_no_group"]))
+    check(w["bit_for_bit"], "ddp (c): the world-1 NCCL steps differ from the Solver's without "
+                            "a group")
+
+    # (d) --distributed eval on two ranks over ckpt_8, against phase 13's records
+    eroot = ev_info["root"]
+    head = ["--model_config", ev_info["config"], "--pretrained", run_a["ckpts"][1],
+            "--batch_size", str(BATCH), "--sd_temperature", ev_info["temperature"],
+            "--output", os.path.join(root, "eval_out", "{dataset}_{task}.json"),
+            "--distributed", "--dist_backend", "gloo", "--device", str(dev)]
+    runs = {"zeroshot": ["eval", "--dataset", "wds/zs", "--dataset_root", f"{eroot}/zs",
+                         "--task", "zeroshot_classification", "--template_set", "80"] + head,
+            "retrieval": ["eval", "--dataset", f"retrieval_json:{eroot}/ret.json",
+                          "--dataset_root", f"{eroot}/ret", "--recall_k", "1", "5", "10"] + head}
+    recs_e, row["eval_seconds"] = launch("eval", {"job": "eval", "runs": runs,
+                                                  "out": os.path.join(root, "eval")}, nproc=2)
+    row["eval"] = {}
+    for label, want in (("zeroshot", report["eval"]["zeroshot"]),
+                        ("retrieval", report["eval"]["retrieval"])):
+        got = [r["runs"][label] for r in recs_e]
+        n = got[0]["launches"]["codebook_pool_fwd"]
+        for g in got:
+            check(g["metrics"] == want, f"ddp (d) {label}: metrics {g['metrics']} differ from "
+                                        f"phase 13's {want}")
+            check(g["plain_routes"] == 0 and n > 0 and g["launches"] == {
+                name: 0 for name in g["launches"]} | {"tiny_attention_fwd": 12 * n,
+                                                      "codebook_pool_fwd": n},
+                  f"ddp (d) {label}: launches {g['launches']}")
+        check(got[0]["dumps"] == 1 and got[1]["dumps"] == 0 and got[1]["printed"] == ""
+              and json.loads(got[0]["printed"])["metrics"] == want,
+              f"ddp (d) {label}: rank 0 must alone print and write the record")
+        row["eval"][label] = {"seconds": [g["seconds"] for g in got], "encoder_batches": n,
+                              "metrics": got[0]["metrics"]}
+        log(f"ddp (d) --distributed {label} on 2 ranks over Gloo: "
+            + ", ".join(f"rank {r} {g['seconds']:.2f} s" for r, g in enumerate(got))
+            + f" ({smi}); {n} encoder batches, each rank launching 12 K2-fwd and 1 K1-fwd on "
+            f"its half of each; metrics equal to phase 13's one-process record; rank 0 alone "
+            f"printed and wrote it")
+    row["seconds"] = time.perf_counter() - t_phase
+    report["ddp"] = row
+    log(f"ddp: phase 15 in {row['seconds']:.1f} s (launches: run A {row['a_seconds']:.1f} s, "
+        f"run B {row['b_seconds']:.1f} s, world 1 {row['nccl_seconds']:.1f} s, no group "
+        f"{row['plain_seconds']:.1f} s, eval {row['eval_seconds']:.1f} s); {smi}")
+    return recs_a[0]["launches"]
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -2521,6 +2976,9 @@ def main() -> int:
         eval_launches, ev_info = eval_phase(dev, counted, report, run_a, tmp)
         # 14. caption tasks, clip_fdt_vitb16, attention maps, the visualizer
         phase14_launches = phase14(dev, counted, report, run_a, ev_info, tmp, smi)
+        # 15. data parallel: ranks in child processes, over phase 12's shards
+        # and checkpoints and phase 13's eval sets
+        phase15_launches = phase15(dev, report, run_a, ev_info, tmp, smi)
 
     report["seconds_total"] = time.perf_counter() - t_start
     out_dir = REPO / "build"
@@ -2545,7 +3003,8 @@ def main() -> int:
                         "shape": rows[0]["case"], "launches_solver": solver_launches[name],
                         "launches_pipeline": pipeline_launches[name],
                         "launches_eval": eval_launches[name],
-                        "launches_phase14": phase14_launches[name]})
+                        "launches_phase14": phase14_launches[name],
+                        "launches_phase15_rank0": phase15_launches[name]})
         serving = clip_serve_launches if flash else launches
         if serving.get(name):
             kernels[-1]["launches_serving"] = serving[name]
@@ -2556,4 +3015,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_job(sys.argv[2]) if sys.argv[1:2] == ["--rank-job"] else main())

@@ -9,8 +9,18 @@ trains. Installed as ``ilvlm-train-torch``; also
         --output_path out --exp_name tiny --device cpu
 
 The model trains on the CUDA card unless ``--device`` names another device.
-One process, one device: the multi-process flags of the JAX launcher come
-with DDP (ROADMAP.md Queue 1 item 5).
+Data parallel, one process per rank (the JAX launcher's flags)::
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m iterated_learning_for_vlm_tpu_torch.cli_entry \
+        --config configs/clip_fdt_cc3m.yaml --output_path out --multihost
+
+``--multihost`` joins torchrun's process group (rank ``r`` on card
+``LOCAL_RANK``); ``--coordinator host:port --num_processes N --process_id r``
+gives the group explicitly. ``--dist_backend`` is ``nccl`` on CUDA and
+``gloo`` on the CPU by default; two ranks on one card need ``gloo`` and
+``--device cuda:0`` (NCCL refuses them). ``data.train.batch_size`` is a
+rank's.
 """
 from __future__ import annotations
 
@@ -28,27 +38,50 @@ def train_main(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--ckpt_path", default=None)
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument("--device", default=None,
-                        help="torch device to train on (default: the CUDA card; "
-                             "'cpu' to train on the CPU)")
+                        help="torch device to train on (default: the CUDA card, under "
+                             "a launcher card LOCAL_RANK; 'cpu' to train on the CPU)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a process group: torchrun's environment, or --coordinator")
+    parser.add_argument("--coordinator", default=None,
+                        help="with --multihost: the group's 'host:port', for processes "
+                             "started without torchrun")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                        help="with --multihost: the process group's backend (default nccl "
+                             "on CUDA, gloo on the CPU; gloo shares one card between ranks)")
     args = parser.parse_args(argv)
+    if args.coordinator and (args.num_processes is None or args.process_id is None):
+        parser.error("--coordinator requires --num_processes and --process_id")
     if args.debug:  # a post-mortem debugger on an uncaught exception at a terminal
         from .utils.debug import install_crash_handler
 
         install_crash_handler()
 
+    from .parallel.mesh import default_backend, init_data_parallel
     from .train.solver import Solver
     from .utils.config import load_config
 
-    config = load_config(args.config)
-    solver = Solver(config, output_path=args.output_path, exp_name=args.exp_name,
-                    batch_size=args.batch_size, ckpt_path=args.ckpt_path, debug=args.debug,
-                    seed=args.seed, device=args.device)
-    max_iter = int(config.lr_scheduler.kwargs.get("max_iter", 0))
-    if solver._last_iter >= max_iter > 0:
-        solver.logger.info("Training has been completed to max_iter!")
+    if args.multihost:
+        init_data_parallel(args.dist_backend or default_backend(args.device),
+                           coordinator=args.coordinator, num_processes=args.num_processes,
+                           process_id=args.process_id)
+    try:
+        config = load_config(args.config)
+        solver = Solver(config, output_path=args.output_path, exp_name=args.exp_name,
+                        batch_size=args.batch_size, ckpt_path=args.ckpt_path, debug=args.debug,
+                        seed=args.seed, device=args.device)
+        max_iter = int(config.lr_scheduler.kwargs.get("max_iter", 0))
+        if solver._last_iter >= max_iter > 0:
+            solver.logger.info("Training has been completed to max_iter!")
+            return solver
+        solver.train()
         return solver
-    solver.train()
-    return solver
+    finally:
+        if args.multihost:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -11,14 +11,19 @@ batches are the JAX package's, array for array.
 - Decode and augment run in a thread pool (the native augment releases the
   GIL); tokenization happens here, into fixed-shape int32 batches.
 - Context buckets: a batch whose captions all fit a smaller bucket is cut to
-  it (:func:`bucket_context`), so the text tower runs at that length.
+  it (:func:`bucket_context`), so the text tower runs at that length. Across
+  processes the ranks agree on one bucket a step
+  (``context_buckets_sync: true``): the loader defers the cut
+  (``DataInfo.deferred_buckets``) and the trainer applies it on its own
+  thread (:func:`synced_bucket_batches`: an ``all_reduce(MAX)`` of each
+  batch's longest caption, one batch ahead).
 - :func:`prefetch_to_device` is the device half: a producer thread copies
   each batch from pinned host memory on its own CUDA stream while the step
   runs, and the consumer normalises the uint8 wire on the device
   (:func:`normalize_device_batch`).
 
 Not ported yet: the hard-negative loader and MLM masking (ROADMAP.md Queue 1
-item 6) and the multi-host synced buckets (item 5, with DDP); they raise.
+item 6); they raise.
 """
 from __future__ import annotations
 
@@ -35,7 +40,9 @@ from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import cpu_group, initialized
 from ..utils.logging import get_logger
 from .augment import _NORM_OFFSET, _NORM_SCALE, build_common_augmentation
 from .shards import detshuffle, expand_shard_pattern, iter_tar_samples, split_shards
@@ -58,6 +65,8 @@ class DataInfo:
     loader_fn: Callable[[int], Iterator[Dict[str, np.ndarray]]]
     num_batches: int
     num_samples: int
+    # context buckets the trainer applies across processes (synced buckets)
+    deferred_buckets: tuple = ()
 
     def __post_init__(self):
         self._epoch = 0
@@ -142,15 +151,20 @@ def _bucket_for_len(max_len: int, ctx: int, buckets) -> Optional[int]:
     return None
 
 
+def _max_true_len(pad_mask) -> int:
+    """The batch's longest caption (pad-mask convention: 0.0 = real token,
+    incl. EOT; -inf = pad)."""
+    if torch.is_tensor(pad_mask):
+        return int((pad_mask == 0.0).sum(dim=1).max())
+    return int((np.asarray(pad_mask) == 0.0).sum(axis=1).max())
+
+
 def pick_context_bucket(pad_mask, buckets) -> Optional[int]:
     """The smallest bucket (< the current context) that holds every caption,
     or None when no cut applies (overflow, or only the full context fits).
     The one definition of the bucket choice, shared by the train pipeline
-    (:func:`bucket_context`) and the serving encoder (``eval/encode.py``).
-    Pad-mask convention: 0.0 = real token (incl. EOT), -inf = pad."""
-    pad_mask = np.asarray(pad_mask)
-    max_len = int((pad_mask == 0.0).sum(axis=1).max())
-    return _bucket_for_len(max_len, pad_mask.shape[1], buckets)
+    (:func:`bucket_context`) and the serving encoder (``eval/encode.py``)."""
+    return _bucket_for_len(_max_true_len(pad_mask), pad_mask.shape[1], buckets)
 
 
 def bucket_context(batch: Dict[str, np.ndarray], buckets) -> Dict[str, np.ndarray]:
@@ -169,6 +183,84 @@ def bucket_context(batch: Dict[str, np.ndarray], buckets) -> Dict[str, np.ndarra
     for key in _TOKEN_KEYS:
         if key in out:
             out[key] = np.ascontiguousarray(out[key][:, :b])
+    return out
+
+
+def bucket_global_batch(batch, buckets):
+    """:func:`bucket_context` over the ranks of the process group (JAX
+    ``bucket_global_batch``): every rank cuts its rows to the bucket of the
+    longest caption of the GLOBAL batch, found by an ``all_reduce(MAX)`` of
+    each rank's longest. With no process group it is :func:`bucket_context`
+    on the batch.
+
+    Every rank must make the same calls in the same order, from the thread
+    that runs the train steps: the loader's sizing gives every rank the same
+    number of batches, and a loader failure is raised on that thread
+    (:func:`prefetch_to_device`), which ends the run. The trainer uses the
+    pipelined form, :func:`synced_bucket_batches`."""
+    if not buckets:
+        return batch
+    gmax = _MaxLen(_max_true_len(batch["pad_mask"]))
+    return _apply_bucket(batch, gmax.wait(), buckets)
+
+
+def synced_bucket_batches(batches: Iterator, buckets,
+                          lengths: Optional[collections.deque] = None) -> Iterator:
+    """:func:`bucket_global_batch` over a stream of batches, one batch ahead
+    (JAX ``synced_bucket_batches``): batch N+1's ``all_reduce`` starts
+    (``async_op``) before batch N is yielded, so the step of batch N is
+    dispatched while the ranks agree on the next bucket. ``lengths``: each
+    batch's longest caption, in stream order, from :func:`caption_lengths`
+    on the host side of :func:`prefetch_to_device` (read from the pad mask
+    when None; a CUDA pad mask would then wait for the queued steps).
+    Iterate it from the thread that runs the train steps."""
+    if not buckets:
+        yield from batches
+        return
+    pending = None  # (batch, the agreement in flight)
+    for batch in batches:
+        local = lengths.popleft() if lengths is not None else _max_true_len(batch["pad_mask"])
+        gmax = _MaxLen(local)
+        if pending is not None:
+            yield _apply_bucket(pending[0], pending[1].wait(), buckets)
+        pending = (batch, gmax)
+    if pending is not None:
+        yield _apply_bucket(pending[0], pending[1].wait(), buckets)
+
+
+def caption_lengths(batches: Iterator, lengths: collections.deque) -> Iterator:
+    """Pass ``batches`` through, appending each one's longest caption to
+    ``lengths`` first (the host half of :func:`synced_bucket_batches`)."""
+    for batch in batches:
+        lengths.append(_max_true_len(batch["pad_mask"]))
+        yield batch
+
+
+class _MaxLen:
+    """The ranks' longest caption: an ``all_reduce(MAX)`` of one int64 CPU
+    scalar over the Gloo group (``parallel.mesh.cpu_group``), started at
+    once; :meth:`wait` gives its value."""
+
+    def __init__(self, local: int):
+        self.value = torch.tensor([local], dtype=torch.int64)
+        self.work = (dist.all_reduce(self.value, op=dist.ReduceOp.MAX, group=cpu_group(),
+                                     async_op=True) if initialized() else None)
+
+    def wait(self) -> int:
+        if self.work is not None:
+            self.work.wait()
+        return int(self.value)
+
+
+def _apply_bucket(batch, gmax: int, buckets):
+    b = _bucket_for_len(gmax, batch["pad_mask"].shape[1], buckets)
+    if b is None:
+        return batch
+    out = dict(batch)
+    for key in _TOKEN_KEYS:
+        if key in out:
+            v = out[key][:, :b]
+            out[key] = v.contiguous() if torch.is_tensor(v) else np.ascontiguousarray(v)
     return out
 
 
@@ -206,9 +298,11 @@ def get_wds_dataset(
     batch_size; ``config_cc3m.yaml:67-75``); ``shuffle=False`` gives the
     unshuffled visualization loader (clip_dataset_wsd.py:443-506).
 
-    ``world_size`` / ``rank`` split the shards (and, as in JAX, turn the
-    in-loader context buckets off: a bucket must then be agreed across
-    processes)."""
+    ``world_size`` / ``rank`` split the shards; ``batch_size`` is a rank's.
+    Across processes the loader cuts no context bucket itself: with
+    ``context_buckets_sync`` it defers them to the trainer
+    (``DataInfo.deferred_buckets``; in any process group, a group of one
+    too), without it buckets are off, as in JAX."""
     data_path = cfg["data_path"]
     shards = (
         expand_shard_pattern(data_path) if isinstance(data_path, str) else list(data_path)
@@ -254,14 +348,19 @@ def get_wds_dataset(
     tokenizer = tokenizer or get_tokenizer()
     context_length = int(cfg.get("context_length", 77))
     context_buckets = cfg.get("context_buckets") or ()
-    if context_buckets and world_size > 1:
-        if cfg.get("context_buckets_sync", False):
-            raise NotImplementedError(
-                "data.train.context_buckets_sync across processes (the per-batch bucket "
-                "agreement) comes with DDP (ROADMAP.md Queue 1 item 5)")
+    deferred_buckets: tuple = ()
+    if (context_buckets and cfg.get("context_buckets_sync", False)
+            and (world_size > 1 or initialized())):
+        # a bucket is a per-step shape of every rank: the ranks agree on it in
+        # the trainer's loop (synced_bucket_batches), never here in the
+        # prefetch producer's thread. A group of one runs the same code.
+        deferred_buckets = tuple(int(b) for b in context_buckets)
+        context_buckets = ()
+    elif context_buckets and world_size > 1:
         logger.warning(
             "data.train.context_buckets disabled: %d-way host sharding needs a per-step "
-            "cross-host shape agreement", world_size)
+            "cross-host shape agreement (set data.train.context_buckets_sync: true to let "
+            "the trainer apply it through a per-batch all_reduce)", world_size)
         context_buckets = ()
 
     num_batches, sized_samples = _sizing(num_samples, batch_size, world_size, workers)
@@ -332,7 +431,8 @@ def get_wds_dataset(
                 if produced >= num_batches:
                     return
 
-    return DataInfo(loader_fn=loader, num_batches=num_batches, num_samples=sized_samples)
+    return DataInfo(loader_fn=loader, num_batches=num_batches, num_samples=sized_samples,
+                    deferred_buckets=deferred_buckets)
 
 
 def get_neg_wds_dataset(cfg, world_size=1, rank=0, tokenizer=None, seed=0) -> DataInfo:

@@ -6,8 +6,12 @@ subcommands, flags, records and ``--output`` templates. The JAX-only
 ``ilvlm-train-torch``): the model runs on the CUDA card unless ``--device``
 names another device, and without a card it raises. ``--model_type
 ja_clip/nllb_clip`` loads a local HF ``save_pretrained`` directory given as
-``--pretrained`` (``eval/hf_adapter.py``). Not ported yet, and raising
-``NotImplementedError``: ``--distributed`` (ROADMAP.md Queue 1 item 5, DDP).
+``--pretrained`` (``eval/hf_adapter.py``). ``--distributed`` under
+``python -m torch.distributed.run`` joins the launcher's process group
+(``--dist_backend``: ``nccl`` on CUDA, ``gloo`` on the CPU or to share one
+card) and encodes each batch data-parallel; every rank runs the task and
+only rank 0 prints and writes the record. Without a launcher it is the
+one-process path.
 
 Parity target: reference ``CLIP_benchmark/clip_benchmark/cli.py`` — the
 ``eval`` subcommand iterating model x dataset, dispatching by task and
@@ -33,6 +37,8 @@ import json
 import os
 import re
 import sys
+
+from ..parallel.mesh import default_backend, init_data_parallel, initialized, is_main
 
 
 def _load_encoder(args, language="en"):
@@ -64,6 +70,8 @@ def _dump(args, dataset, task, metrics, language="en", extra=None):
     }
     if extra:  # --dump_classnames / --dump_templates (reference cli.py)
         rec.update(extra)
+    if not is_main():  # every rank ran the task; rank 0 reports it
+        return rec
     out = args.output
     if out:
         # reference cli.py --output is a template, e.g.
@@ -176,7 +184,7 @@ def cmd_eval(args):
             if os.path.exists(candidate):  # reference cli.py --skip_existing
                 print(f"skip existing {candidate}", file=sys.stderr)
                 continue
-        if getattr(args, "verbose", True):  # reference --quiet sets verbose=False
+        if getattr(args, "verbose", True) and is_main():  # reference --quiet: verbose=False
             print(f"Running '{task}' on '{dataset}' (language {language}) "
                   f"with model '{args.model_config}'", file=sys.stderr)
         probe_prefix = None
@@ -404,8 +412,13 @@ def build_parser():
                              "--num_workers; the augment hot path is "
                              "GIL-releasing native code)")
         sp.add_argument("--distributed", action="store_true",
-                        help="data-parallel eval (reference --distributed); "
-                             "comes with DDP, raises until then")
+                        help="data-parallel eval (reference --distributed): under "
+                             "python -m torch.distributed.run every rank encodes its "
+                             "slice of each batch; rank 0 reports")
+        sp.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                        help="with --distributed: the process group's backend (default "
+                             "nccl on CUDA, gloo on the CPU; gloo shares one card "
+                             "between ranks)")
         sp.add_argument("--device", default=None,
                         help="torch device to evaluate on (default: the CUDA "
                              "card; 'cpu' to evaluate on the CPU)")
@@ -523,7 +536,19 @@ def main(argv=None):
     if hf_type and not getattr(args, "pretrained", None):
         build_parser().error("--model_type ja_clip/nllb_clip needs --pretrained "
                              "pointing at a local HF save_pretrained directory")
-    return args.fn(args)
+    # --distributed under a launcher: join its group for this run (a group
+    # already set up by the caller is used as it is)
+    own_group = (getattr(args, "distributed", False) and "WORLD_SIZE" in os.environ
+                 and not initialized())
+    if own_group:
+        init_data_parallel(args.dist_backend or default_backend(args.device))
+    try:
+        return args.fn(args)
+    finally:
+        if own_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -17,6 +17,13 @@ tokenizer (``data/tokenizer.py``) on first use.
 ``weight_dtype=torch.bfloat16`` is the serving cast (JAX
 ``serving_cast_params``): a copy of the model whose matmul weights are bf16
 once, instead of at every use.
+
+``data_parallel=True`` in a process group of W ranks (JAX ``data_parallel``
+over the mesh's data axis; the reference's ``--distributed``): the fixed
+batch is rounded up to a multiple of W, each rank encodes its contiguous
+slice of every batch and an ``all_gather`` gives every rank the whole batch,
+so every rank computes the same metrics. Every rank must then make the same
+calls. With no group, or a world of 1, it is the one-device path.
 """
 from __future__ import annotations
 
@@ -25,10 +32,12 @@ from typing import Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.augment import build_common_augmentation
 from ..data.pipeline import pick_context_bucket
 from ..models.layers import LayerNorm
+from ..parallel.mesh import data_rank_world
 
 # parameters the towers read in fp32 (LayerNorm scales and biases, the logit
 # scale, the FDT codebook): JAX ``eval/encode.py:_CAST_KEEP_FP32``
@@ -66,14 +75,16 @@ class TorchEncoder:
     def __init__(self, model, tokenizer=None, batch_size: int = 64,
                  transform: str = "ONECROP", normalize: bool = True, num_workers: int = 4,
                  text_buckets: Optional[Sequence[int]] = (16, 32), weight_dtype=None,
-                 sd_temperature: Optional[float] = None):
+                 sd_temperature: Optional[float] = None, data_parallel: bool = False):
         if weight_dtype is not None:
             model = serving_cast(model, weight_dtype)
         self.model = model.eval()
         self.is_fdt = hasattr(model, "fdt_cfg")
         self.device = next(model.parameters()).device
         self.tokenizer = None if tokenizer is None else self._checked(tokenizer)
-        self.batch_size = batch_size
+        self.rank, self.world = data_rank_world() if data_parallel else (0, 1)
+        # the fixed batch splits evenly over the ranks (JAX encode.py:124-128)
+        self.batch_size = -(-batch_size // self.world) * self.world
         self.normalize = normalize
         self.num_workers = max(1, int(num_workers))
         self.context_length = model.text_cfg.context_length
@@ -103,25 +114,42 @@ class TorchEncoder:
             emb = emb / (torch.linalg.vector_norm(emb, dim=-1, keepdim=True) + 1e-10)
         return emb
 
+    def _split(self, fn, *batch: torch.Tensor) -> torch.Tensor:
+        """``fn`` over this rank's contiguous rows of ``batch``, its fp32
+        output gathered from every rank; ``fn(*batch)`` in a world of 1."""
+        if self.world == 1:
+            return fn(*batch)
+        n = batch[0].shape[0]
+        if n % self.world:
+            raise ValueError(f"a batch of {n} does not split over {self.world} ranks")
+        b = n // self.world
+        part = fn(*(x[self.rank * b:(self.rank + 1) * b] for x in batch)).contiguous()
+        parts = [torch.empty_like(part) for _ in range(self.world)]
+        dist.all_gather(parts, part)
+        return torch.cat(parts)
+
     @torch.inference_mode()
     def image_batch(self, images: torch.Tensor, normalize: Optional[bool] = None):
         """One batch of NHWC images on the model's device -> [B, E] fp32."""
-        if self.is_fdt:
-            _, emb = self.model.extract_img_sd_ft(images, temperature=self.sd_temperature)
-        else:
-            emb = self.model.encode_image(images)
-        return self._finish(emb, normalize)
+        def encode(x):
+            if self.is_fdt:
+                emb = self.model.extract_img_sd_ft(x, temperature=self.sd_temperature)[1]
+            else:
+                emb = self.model.encode_image(x)
+            return self._finish(emb, normalize)
+        return self._split(encode, images)
 
     @torch.inference_mode()
     def text_batch(self, tokens: torch.Tensor, pad_mask: torch.Tensor,
                    normalize: Optional[bool] = None):
         """One batch of token ids and pad mask on the model's device -> [B, E] fp32."""
-        if self.is_fdt:
-            _, emb = self.model.extract_txt_sd_ft(tokens, pad_mask,
-                                                  temperature=self.sd_temperature)
-        else:
-            emb = self.model.encode_text(tokens, pad_mask)["embed"]
-        return self._finish(emb, normalize)
+        def encode(tok, pad):
+            if self.is_fdt:
+                emb = self.model.extract_txt_sd_ft(tok, pad, temperature=self.sd_temperature)[1]
+            else:
+                emb = self.model.encode_text(tok, pad)["embed"]
+            return self._finish(emb, normalize)
+        return self._split(encode, tokens, pad_mask)
 
     def preprocess(self, pil_images: Iterable) -> np.ndarray:
         """The eval transform of each image, on ``num_workers`` threads (the

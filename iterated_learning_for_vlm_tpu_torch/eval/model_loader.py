@@ -75,7 +75,9 @@ def load_eval_encoder(
     ``TorchEncoder`` from an earlier call (same config) whose model takes the
     new weights in place. ``ja_clip`` / ``nllb_clip``: ``checkpoint`` is one
     local HF ``save_pretrained`` directory, ``config`` is unused and
-    ``language`` sets the NLLB tokenizer's source language."""
+    ``language`` sets the NLLB tokenizer's source language. ``data_parallel``:
+    in a process group, every rank encodes its slice of each batch
+    (``TorchEncoder``); the HF types run whole batches on every rank."""
     if model_type in ("ja_clip", "nllb_clip"):
         from .hf_adapter import HFClipEncoder
 
@@ -84,9 +86,6 @@ def load_eval_encoder(
                              "local HF save_pretrained directory")
         return HFClipEncoder(str(checkpoint), model_type=model_type, batch_size=batch_size,
                              normalize=normalize, language=language, device=device)
-    if data_parallel:
-        raise NotImplementedError("data-parallel eval comes with DDP (ROADMAP.md Queue 1 "
-                                  "item 5)")
     if encoder is not None:
         model = encoder.model
     else:
@@ -121,4 +120,5 @@ def load_eval_encoder(
             encoder.sd_temperature = float(sd_temperature)
         return encoder
     return TorchEncoder(model, batch_size=batch_size, transform=transform, normalize=normalize,
-                        num_workers=num_workers, sd_temperature=sd_temperature)
+                        num_workers=num_workers, sd_temperature=sd_temperature,
+                        data_parallel=data_parallel)

@@ -19,6 +19,12 @@ Every ``k_times_every`` steps a copy also goes to ``{save_dir}_k_times``. An
 asynchronous save copies every tensor to the host before it returns (the
 train step updates the parameters in place right after) and writes on one
 background thread, at most one write in flight.
+
+In a process group (``parallel/mesh.py``) every rank holds the same state:
+rank 0 alone writes, and every rank restores. A synchronous save ends at a
+barrier that opens once the file is whole; after an asynchronous one, every
+rank calls ``wait_for_saves`` and then ``parallel.mesh.barrier`` before any
+of them reads the file (``Solver.train`` does at its end).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from typing import Dict, List, Mapping, Optional, Union
 
 import torch
 
+from ..parallel.mesh import barrier, is_main
 from ..tools.torch_checkpoint import jax_path
 from .train_state import TrainState
 
@@ -81,9 +88,14 @@ def save_checkpoint(save_dir: str, model: torch.nn.Module, state: TrainState, st
                     k_times_every: int = 0, use_async: bool = False) -> str:
     """Save ``ckpt_{step}.pth.tar`` under ``save_dir`` (and the ``_k_times``
     copy every ``k_times_every`` steps); returns its path. Overwrites a
-    checkpoint of the same step, as ``torch.save`` does in the reference."""
+    checkpoint of the same step, as ``torch.save`` does in the reference.
+    Every rank of a process group calls it; rank 0 writes."""
     global _WRITER
     path = os.path.join(os.path.abspath(save_dir), f"ckpt_{step}.pth.tar")
+    if not is_main():
+        if not use_async:
+            barrier()
+        return path
     targets = [path]
     if k_times_every and step % k_times_every == 0:
         arch = os.path.abspath(save_dir.rstrip("/") + "_k_times")
@@ -98,6 +110,7 @@ def save_checkpoint(save_dir: str, model: torch.nn.Module, state: TrainState, st
     else:
         _write(ckpt, targets)
         wait_for_saves()
+        barrier()
     return path
 
 

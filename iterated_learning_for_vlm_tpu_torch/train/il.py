@@ -25,6 +25,11 @@ package is structural: the same parameters are redrawn from the same
 distributions, their moments and counts are zeroed, the held codebook is
 bit-equal to the snapshot.
 
+In a process group every rank draws the same values from the same keys,
+so the ranks' parameters stay equal through every reset, snapshot and hold
+with no broadcast (``DistributedDataParallel`` broadcasts only when it is
+built, and averages only gradients).
+
 The controller updates the model's parameters and the state in place and
 returns the state, so it is used as in JAX: ``state = il.on_step(state, step)``
 after every optimizer step.

@@ -19,12 +19,23 @@ while the step runs.
 The eval hooks (``evaluate``: SugarCREPE, ``imagenet_evaluate``: zero-shot
 classification) score the model through a ``TorchEncoder`` as JAX's do.
 
-Ported so far: the ``clip`` recipe (CLIP and CLIP-FDT), on one device. DDP
-and tensor parallelism (ROADMAP.md Queue 1 item 5) and the other recipes and
+Data parallel: in a process group (``parallel/mesh.py:init_data_parallel``,
+one process per rank) the Solver trains the model wrapped in
+``DistributedDataParallel`` with the global-batch InfoNCE, each rank on its
+own rows (the loader's rank split; ``batch_size`` is a rank's), the ranks
+agreeing on each step's context bucket (``context_buckets_sync``). Every
+rank holds the same parameters after every step: the same initial draw,
+averaged gradients, the same seeded IL resets. Only rank 0 writes the log
+file, ``metrics.jsonl``, ``config.json`` and the checkpoints; every rank
+restores. Without a group it is the one-device path.
+
+Ported so far: the ``clip`` recipe (CLIP and CLIP-FDT), data parallel.
+Tensor parallelism (ROADMAP.md Queue 1 item 5) and the other recipes and
 their batch extras (item 6) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import os
@@ -33,12 +44,15 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
-from ..data.pipeline import get_wds_dataset, prefetch_to_device
+from ..data.pipeline import (caption_lengths, get_wds_dataset, prefetch_to_device,
+                             synced_bucket_batches)
 from ..data.synthetic import SyntheticClipData
 from ..data.tokenizer import get_tokenizer
-from ..models import model_entry, resolve_device
+from ..models import model_entry
 from ..models.layers import init_module_tree
+from ..parallel.mesh import barrier, data_rank_world, initialized, local_device
 from ..utils.config import Config
 from ..utils.logging import MetricsWriter, create_logger, get_logger
 from ..utils.meters import AverageMeter
@@ -74,8 +88,9 @@ class Solver:
     """Build and train a CLIP / CLIP-FDT model from a reference-schema config.
 
     ``device``: where the model, the state and the batches live; None means
-    the CUDA card (``models.resolve_device``, which raises where there is
-    none)."""
+    this rank's CUDA card (``parallel.mesh.local_device``, which raises where
+    there is none). In a process group every rank builds its Solver with the
+    same arguments."""
 
     def __init__(
         self,
@@ -91,21 +106,26 @@ class Solver:
         self.config = config
         self.debug = debug
         self.seed = seed
-        self.device = resolve_device(device)
+        self.device = local_device(device)
+        self.rank, self.world_size = data_rank_world()
         if batch_size is not None:
             config.data.train.batch_size = batch_size
 
+        # the run's files from rank 0 only (reference rank-0 logging,
+        # train_solver.py:169-183; JAX solver.py:89-96); the others log to stderr
+        is_main = self.rank == 0
         self._set_output(output_path, exp_name)
-        create_logger(os.path.join(self.output_path, "log.txt"))
+        create_logger(os.path.join(self.output_path, "log.txt") if is_main else None)
         self.logger = get_logger("solver")
         self.metrics_writer = MetricsWriter(os.path.join(self.output_path, "metrics.jsonl"),
-                                            enabled=not debug)
-        config.dump_json(os.path.join(self.output_path, "config.json"))
+                                            enabled=not debug and is_main)
+        if is_main:
+            config.dump_json(os.path.join(self.output_path, "config.json"))
 
         if int((config.get("parallel") or {}).get("model_parallel", 1) or 1) > 1:
-            raise NotImplementedError("parallel.model_parallel > 1 (tensor parallelism) is not "
-                                      "ported to the PyTorch package (ROADMAP.md Queue 1 item 5)")
-        self.world_size = 1
+            raise NotImplementedError(
+                "parallel.model_parallel > 1 (tensor parallelism) is not ported to the PyTorch "
+                "package (ROADMAP.md Queue 1 item 5, tensor parallelism)")
         self.is_fdt = "fdt" in config.model.type
         # method-recipe dispatch as in JAX: an explicit `recipe:` wins, else
         # inferred from model.type
@@ -123,6 +143,10 @@ class Solver:
 
         self._build_model()
         self._build_optimizer()
+        # in a group the step runs through DDP; it broadcasts rank 0's
+        # parameters once, here (every rank drew the same ones)
+        self.train_model = (DistributedDataParallel(self.model, static_graph=True)
+                            if initialized() else self.model)
         self._build_data()
         self._build_lr_scheduler()
         self._build_il()
@@ -199,8 +223,12 @@ class Solver:
                 num_classes=int(dcfg.get("num_classes", 64)),
                 two_views=bool(dcfg.get("two_views", False)),
                 mask_type=dcfg.get("mask_type"),
+                # disjoint per-rank streams (and class partitions)
+                rank=self.rank,
+                world_size=self.world_size,
             )
             self.num_batches_per_epoch = self._synthetic.num_batches
+            self._sync_buckets = ()
             return
         self._synthetic = None
         # crops and contexts follow the towers unless the config names them
@@ -209,9 +237,14 @@ class Solver:
             dcfg["image_size"] = int(self.model.vision_cfg.input_resolution)
         if "context_length" not in dcfg:
             dcfg["context_length"] = int(self.model.text_cfg.context_length)
-        self.train_data = get_wds_dataset(dcfg, world_size=self.world_size, rank=0,
+        self.train_data = get_wds_dataset(dcfg, world_size=self.world_size, rank=self.rank,
                                           tokenizer=get_tokenizer(), seed=self.seed)
         self.num_batches_per_epoch = self.train_data.num_batches
+        # the loader says whether it deferred the buckets to this loop
+        self._sync_buckets = self.train_data.deferred_buckets
+        if self._sync_buckets:
+            self.logger.info("synced context buckets across %d ranks: %s", self.world_size,
+                             list(self._sync_buckets))
 
     def _build_lr_scheduler(self):
         sched_cfg = Config(self.config.lr_scheduler.to_dict())
@@ -222,7 +255,7 @@ class Solver:
         self.max_iter = int(self.config.lr_scheduler.kwargs.get("max_iter", 0))
         gc = self.config.get("grad_clip", {}) or {}
         self.train_step = make_train_step(
-            self.model, self.lr_schedule, self.wd_tree, is_fdt=self.is_fdt,
+            self.train_model, self.lr_schedule, self.wd_tree, is_fdt=self.is_fdt,
             grad_clip_type=gc.get("type", "none"),
             grad_clip_value=float(gc.get("value", 0.0) or 0.0),
             grad_clip_max_value=float(gc.get("max_value", 0.0) or 0.0),
@@ -276,21 +309,31 @@ class Solver:
         run that saved got from there on: each synthetic batch is keyed by its
         index (the skipped ones are never drawn), and the shard stream is keyed
         by (seed, epoch) with its per-sample augment seeds drawn in stream
-        order, so the skipped batches are decoded on the host but never copied."""
+        order, so the skipped batches are decoded on the host but never copied.
+        With synced buckets the ranks agree on each batch's context here, on
+        the thread that runs the steps, one batch ahead, from the captions'
+        lengths taken on the host."""
         if self._synthetic is not None:
             it = self._synthetic.batches(skip)
         else:
             self.train_data.set_epoch(epoch)
             it = itertools.islice(self.train_data.dataloader, skip, None)
-        return prefetch_to_device(it, self.device, size=2)
+        if not self._sync_buckets:
+            return prefetch_to_device(it, self.device, size=2)
+        lengths: collections.deque = collections.deque()
+        it = prefetch_to_device(caption_lengths(it, lengths), self.device, size=2)
+        return synced_bucket_batches(it, self._sync_buckets, lengths)
 
     def train(self):
         # in-flight async checkpoint writes reach the disk even when the loop
         # raises or is interrupted
         try:
-            return self._train()
+            state = self._train()
         finally:
             wait_for_saves()
+        # rank 0's last checkpoint is whole before any rank goes on to read it
+        barrier()
+        return state
 
     def _train(self):
         cfg = self.config
@@ -413,7 +456,8 @@ class Solver:
 
         mode = self.model.training
         try:
-            yield TorchEncoder(self.model, tokenizer=self.tokenizer)
+            yield TorchEncoder(self.model, tokenizer=self.tokenizer,
+                               data_parallel=self.world_size > 1)
         finally:
             self.model.train(mode)
 

@@ -14,6 +14,14 @@ PyTorch runs it eagerly and updates in place: the model's parameters, their
 ``torch.no_grad``; the step returns only the metrics. During the codebook
 hold ``space_dict`` stays trainable (its moments and count advance) and only
 its value is overwritten by the snapshot.
+
+Data parallel: given a ``DistributedDataParallel`` wrapper, the step runs
+the forward through it (DDP averages the gradients over the ranks during
+the backward) and the InfoNCE over the global batch,
+``clip_info_nce_sharded``; every rank then takes the same update. The
+parameters are read from the wrapped module, so their names (the weight
+decay tree, ``state.trainable``, the checkpoint keys) carry no ``module.``
+prefix.
 """
 from __future__ import annotations
 
@@ -21,7 +29,9 @@ from typing import Any, Callable, Dict, Mapping
 
 import torch
 
-from .loss import clip_info_nce
+from torch.nn.parallel import DistributedDataParallel
+
+from .loss import clip_info_nce, clip_info_nce_sharded
 from .optim import adamw_update, clamp_logit_scale, clip_grads
 from .train_state import TrainState
 
@@ -32,26 +42,38 @@ def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
                     grad_clip_value: float = 3.0, grad_clip_max_value: float = 6.0,
                     b1: float = 0.9, b2: float = 0.98, eps: float = 1e-8,
                     reference_scale: float = 1.0, spectral_norm: bool = False,
-                    lipreg_lambda: float = 0.0):
-    """Build ``step(state, batch, sd_temperature) -> metrics`` for ``model``.
+                    lipreg_lambda: float = 0.0, group=None):
+    """Build ``step(state, batch, sd_temperature) -> metrics`` for ``model``,
+    a model or its ``DistributedDataParallel`` wrapper (then ``batch`` holds
+    this rank's rows, and ``group`` names the ranks of the loss's gather:
+    None, the whole group).
 
     ``batch``: ``image`` [B, H, W, 3], ``tokens`` int [B, ctx], ``pad_mask``
     [B, ctx] (0 real / -inf pad), on the model's device; ``sd_temperature``
     a float, which only a CLIP-FDT model (``is_fdt``) reads. ``metrics``:
     ``loss``, ``logit_scale``, ``acc1``, ``acc5`` as 0-d device tensors and
-    ``lr`` as a float."""
+    ``lr`` as a float; under DDP ``loss``, ``acc1`` and ``acc5`` are means
+    over the ranks."""
     if spectral_norm or lipreg_lambda > 0.0:
         raise NotImplementedError("spectral_norm and lipreg are not ported")
-    params = dict(model.named_parameters())
+    data_parallel = isinstance(model, DistributedDataParallel)
+    params = dict((model.module if data_parallel else model).named_parameters())
 
     def step(state: TrainState, batch: Dict[str, Any], sd_temperature: float):
         for p in params.values():
             p.grad = None
         kwargs = {"sd_temperature": sd_temperature} if is_fdt else {}
         out = model(batch["image"], batch["tokens"], batch.get("pad_mask"), **kwargs)
-        loss, metrics = clip_info_nce(out["image_embed"], out["text_embed"],
-                                      out["logit_scale"], reference_scale=reference_scale)
-        loss.backward()
+        if data_parallel:
+            loss, metrics = clip_info_nce_sharded(out["image_embed"], out["text_embed"],
+                                                  out["logit_scale"], group=group,
+                                                  reference_scale=reference_scale)
+            loss.backward()  # this rank's loss; DDP averages the gradients
+            loss = metrics.pop("loss")
+        else:
+            loss, metrics = clip_info_nce(out["image_embed"], out["text_embed"],
+                                          out["logit_scale"], reference_scale=reference_scale)
+            loss.backward()
         grads = {n: p.grad for n, p in params.items()}
         clip_grads(grads, grad_clip_type, grad_clip_value)
 

@@ -537,8 +537,14 @@ def test_unported_options_raise(shard_dirs, case):
         cfg["two_views"] = True
     elif case == "mocov2_two_views":
         cfg["transforms"] = "MOCOV2"
-    else:
+    else:  # ported: the loader defers the buckets to the trainer, as JAX's does
         cfg.update(context_buckets=[16, 32], context_buckets_sync=True)
-        world = 2
+        got = pipe.get_wds_dataset(cfg, 2, 0)
+        want = jpipe.get_wds_dataset(cfg, world_size=2, rank=0)
+        assert got.deferred_buckets == want.deferred_buckets == (16, 32)
+        assert got.num_batches == want.num_batches
+        assert_batches_equal(list(got.dataloader)[:2], list(want.dataloader)[:2])
+        assert next(iter(got.dataloader))["tokens"].shape == (4, 32)  # not cut in the loader
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 item"):
         pipe.get_wds_dataset(cfg, world, 0)

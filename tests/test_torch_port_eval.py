@@ -717,17 +717,22 @@ def test_loader_options_match_jax(ckpts, jax_encoders):
 
 
 def test_loader_refusals(ckpts, tmp_path):
-    """A JAX (Orbax) checkpoint directory, the spectral-norm types and
-    data-parallel eval raise; with no device named and no card, the loader
-    raises instead of building on the CPU."""
+    """A JAX (Orbax) checkpoint directory and the spectral-norm types raise;
+    data-parallel eval with no process group is the one-device encoder (JAX's
+    ``ndata == 1`` path; the 2-rank case is ``test_torch_port_dist.py``'s);
+    with no device named and no card, the loader raises instead of building
+    on the CPU."""
     with pytest.raises(ValueError, match="torch-format checkpoints only"):
         port_load(CONFIGS["fdt"], str(tmp_path))
     cfg = load_config(CONFIGS["clip"])
     cfg.model["type"] = "clip_vitb32_sp"
     with pytest.raises(NotImplementedError, match="spectral norm"):
         port_load(cfg, None)
-    with pytest.raises(NotImplementedError, match="DDP"):
-        port_load(CONFIGS["clip"], None, data_parallel=True)
+    parallel = port_load(CONFIGS["clip"], ckpts["clip"][0], data_parallel=True)
+    assert (parallel.rank, parallel.world, parallel.batch_size) == (0, 1, BS)
+    for w, g in zip(embeddings(port_load(CONFIGS["clip"], ckpts["clip"][0])),
+                    embeddings(parallel)):
+        np.testing.assert_array_equal(g, w)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ploader.load_eval_encoder(CONFIGS["clip"], None)
@@ -1024,11 +1029,12 @@ def test_cli_probe_cache_val_split_no_normalize(port_cli, tmp_path, monkeypatch)
 
 
 def test_cli_refusals_and_device(port_cli, capsys):
-    """--distributed raises and names DDP; --quiet silences the progress line;
-    without --device and without a card the CLI raises instead of running on
-    the CPU."""
-    with pytest.raises(NotImplementedError, match="DDP"):
-        port_cli(["sugar_crepe", "--data_root", "x", "--image_root", "x", "--distributed"])
+    """--distributed without a launcher's process group is the one-process
+    run (the 2-rank runs are ``test_torch_port_dist.py``'s); --quiet silences
+    the progress line; without --device and without a card the CLI raises
+    instead of running on the CPU."""
+    assert (port_cli(["eval", "--dataset", "dummy", "--distributed", "--dist_backend", "gloo"])
+            == port_cli(["eval", "--dataset", "dummy"]))
     capsys.readouterr()
     port_cli(["eval", "--dataset", "dummy", "--quiet"])
     assert "Running" not in capsys.readouterr().err
