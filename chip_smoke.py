@@ -1118,7 +1118,7 @@ def solver_phase(dev, counted, report):
         steps = sorted(rec_a["exit"])
         row["step_host_ms"] = [1e3 * (rec_a["exit"][s] - rec_a["enter"][s]) for s in steps]
         row["data_host_ms"] = [1e3 * (rec_a["enter"][s] - rec_a["exit"][s - 1]) for s in steps[1:]]
-        row["meters"] = {k: a.meters[k].avg for k in ("batch_time", "data_time")}
+        row["meters"] = {"batch_time": a.meters["batch_time"].avg}
         final = {n: p.detach().cpu() for n, p in a.params.items()}
         os.remove(os.path.join(a.save_path, "ckpt_12.pth.tar"))
         del a, rec_a
@@ -1168,8 +1168,7 @@ def solver_phase(dev, counted, report):
         "the host, so these are not throughput figures): step ms "
         + ", ".join(f"{x:.1f}" for x in row["step_host_ms"]) + "; data ms "
         + ", ".join(f"{x:.1f}" for x in row["data_host_ms"])
-        + f"; meters (last 4 steps) batch_time {row['meters']['batch_time'] * 1e3:.1f} ms, "
-        f"data_time {row['meters']['data_time'] * 1e3:.1f} ms")
+        + f"; meter (last 4 steps) batch_time {row['meters']['batch_time'] * 1e3:.1f} ms")
     log(f"solver checkpoint: {row['checkpoint_bytes']} bytes; async save in the loop blocked "
         + ", ".join(f"{x:.3f}" for x in row["async_save_blocking_s"])
         + f" s; a synchronous save {row['sync_save_s']:.3f} s; restore {row['restore_s']:.3f} s; "

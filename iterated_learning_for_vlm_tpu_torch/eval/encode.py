@@ -24,6 +24,14 @@ batch is rounded up to a multiple of W, each rank encodes its contiguous
 slice of every batch and an ``all_gather`` gives every rank the whole batch,
 so every rank computes the same metrics. Every rank must then make the same
 calls. With no group, or a world of 1, it is the one-device path.
+
+Under a running ``torch.profiler`` the encoder opens spans
+(``utils/profiling.py``): ``encode.tokenize`` (attrs ``rows``, ``ctx``),
+``encode.text_batch`` and ``encode.image_batch`` (a fixed batch's copy to the
+device and its encode: ``rows`` real of ``padded``, and the text's ``ctx``
+bucket), ``encode.fetch`` (a batch's result copied to the host, where the
+host waits for the device: ``rows``), and ``encode.images`` (attrs ``rows``)
+over ``encode.preprocess`` and the image batches.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from ..data.augment import build_common_augmentation
 from ..data.pipeline import pick_context_bucket
 from ..models.layers import LayerNorm
 from ..parallel.mesh import data_rank_world
+from ..utils.profiling import span
 
 # parameters the towers read in fp32 (LayerNorm scales and biases, the logit
 # scale, the FDT codebook): JAX ``eval/encode.py:_CAST_KEEP_FP32``
@@ -167,19 +176,26 @@ class TorchEncoder:
     def encode_images(self, images, normalize: Optional[bool] = None) -> np.ndarray:
         """images: a sequence of PIL images, or an [N, H, W, 3] float array
         already transformed -> [N, E] float32."""
-        if not isinstance(images, np.ndarray):
-            images = self.preprocess(images)
-        out = []
-        bs = self.batch_size
-        for i in range(0, len(images), bs):
-            chunk = np.asarray(images[i:i + bs], np.float32)
-            real = len(chunk)
-            if real < bs:
-                chunk = np.concatenate([chunk, np.zeros((bs - real,) + chunk.shape[1:],
-                                                        np.float32)])
-            x = torch.from_numpy(chunk).to(self.device)
-            out.append(self.image_batch(x, normalize)[:real].cpu().numpy())
-        return np.concatenate(out) if out else np.zeros((0, 1), np.float32)
+        pil = not isinstance(images, np.ndarray)
+        if pil:
+            images = list(images)
+        with span("encode.images", rows=len(images)):
+            if pil:
+                with span("encode.preprocess", rows=len(images)):
+                    images = self.preprocess(images)
+            out = []
+            bs = self.batch_size
+            for i in range(0, len(images), bs):
+                chunk = np.asarray(images[i:i + bs], np.float32)
+                real = len(chunk)
+                if real < bs:
+                    chunk = np.concatenate([chunk, np.zeros((bs - real,) + chunk.shape[1:],
+                                                            np.float32)])
+                with span("encode.image_batch", rows=real, padded=bs):
+                    emb = self.image_batch(torch.from_numpy(chunk).to(self.device), normalize)
+                with span("encode.fetch", rows=real):
+                    out.append(emb[:real].cpu().numpy())
+            return np.concatenate(out) if out else np.zeros((0, 1), np.float32)
 
     def _bucket(self, tokens: np.ndarray, pad_mask: np.ndarray):
         if len(self.text_buckets) <= 1:
@@ -205,11 +221,12 @@ class TorchEncoder:
                 fill = np.zeros(bs - real, np.int64)
                 tok, pad = np.concatenate([tok, tok[fill]]), np.concatenate([pad, pad[fill]])
             tok, pad = self._bucket(tok, pad)
-            emb = self.text_batch(torch.from_numpy(np.ascontiguousarray(tok, np.int64))
-                                  .to(self.device),
-                                  torch.from_numpy(np.ascontiguousarray(pad)).to(self.device),
-                                  normalize)
-            out.append(emb[:real].cpu().numpy())
+            with span("encode.text_batch", rows=real, padded=bs, ctx=tok.shape[1]):
+                emb = self.text_batch(
+                    torch.from_numpy(np.ascontiguousarray(tok, np.int64)).to(self.device),
+                    torch.from_numpy(np.ascontiguousarray(pad)).to(self.device), normalize)
+            with span("encode.fetch", rows=real):
+                out.append(emb[:real].cpu().numpy())
         return np.concatenate(out) if out else np.zeros((0, 1), np.float32)
 
     def encode_texts(self, texts: Sequence[str], normalize: Optional[bool] = None) -> np.ndarray:
@@ -217,5 +234,7 @@ class TorchEncoder:
             from ..data.tokenizer import get_tokenizer
 
             self.tokenizer = self._checked(get_tokenizer())
-        tokens, pad_mask = self.tokenizer(list(texts), context_length=self.context_length)
+        texts = list(texts)
+        with span("encode.tokenize", rows=len(texts), ctx=self.context_length):
+            tokens, pad_mask = self.tokenizer(texts, context_length=self.context_length)
         return self.encode_texts_tokens(np.asarray(tokens), np.asarray(pad_mask), normalize)

@@ -16,6 +16,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 
+from ..utils.profiling import span
+
 
 def build_zeroshot_classifier(
     encoder, classnames: Sequence[str], templates
@@ -25,20 +27,22 @@ def build_zeroshot_classifier(
     ``templates`` is either a list of generic prompts specialised per class
     ("a photo of a {c}"), or a dict keyed by classname with class-specific
     prompt lists (CuPL, reference ``zeroshot_classification.py:43-46``,
-    fed via ``--custom_template_file``)."""
+    fed via ``--custom_template_file``). Under a running ``torch.profiler`` it
+    is the span ``zeroshot.classifier`` (attrs ``classes``)."""
     weights = []
-    for classname in classnames:
-        if isinstance(templates, dict):
-            prompts = list(templates[classname])
-        else:
-            prompts = [
-                t.format(c=classname) if "{c}" in t else t.format(classname)
-                for t in templates
-            ]
-        emb = encoder.encode_texts(prompts)  # [T, D] already normalised
-        mean = emb.mean(axis=0)
-        mean /= np.linalg.norm(mean) + 1e-10
-        weights.append(mean)
+    with span("zeroshot.classifier", classes=len(classnames)):
+        for classname in classnames:
+            if isinstance(templates, dict):
+                prompts = list(templates[classname])
+            else:
+                prompts = [
+                    t.format(c=classname) if "{c}" in t else t.format(classname)
+                    for t in templates
+                ]
+            emb = encoder.encode_texts(prompts)  # [T, D] already normalised
+            mean = emb.mean(axis=0)
+            mean /= np.linalg.norm(mean) + 1e-10
+            weights.append(mean)
     return np.stack(weights, axis=1)
 
 

@@ -56,6 +56,7 @@ from ..parallel.mesh import barrier, data_rank_world, initialized, local_device
 from ..utils.config import Config
 from ..utils.logging import MetricsWriter, create_logger, get_logger
 from ..utils.meters import AverageMeter
+from ..utils.profiling import span
 from .checkpoint import (find_last_checkpoint, load_checkpoint, modify_state,
                          restore_checkpoint, save_checkpoint, wait_for_saves)
 from .il import ILController, ResetConfig
@@ -347,7 +348,7 @@ class Solver:
         default_T = float(self.model.fdt_cfg.sd_temperature) if self.is_fdt else 0.0
 
         meters = {k: AverageMeter(print_freq)
-                  for k in ("loss", "acc1", "acc5", "batch_time", "data_time")}
+                  for k in ("loss", "acc1", "acc5", "batch_time")}
         self.meters = meters
         step = self._last_iter
         self.logger.info(
@@ -382,51 +383,59 @@ class Solver:
         for epoch in range(start_epoch, start_epoch + epochs + (1 if resume_skip else 0)):
             if done:
                 break
-            for batch in self._batches(epoch, skip=resume_skip if epoch == start_epoch else 0):
-                meters["data_time"].update(time.time() - end)
+            batches = iter(self._batches(epoch,
+                                         skip=resume_skip if epoch == start_epoch else 0))
+            while True:
+                with span("solver.next_batch", step=step + 1):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
                 step += 1
                 temperature = fdt_temperature(step, t_decay, default_T) if self.is_fdt else 0.0
                 metrics = self.train_step(self.state, batch, temperature)
-                self.state = self.il.on_step(self.state, step)
+                with span("il.on_step", step=step):
+                    self.state = self.il.on_step(self.state, step)
                 pending.append((step, metrics["loss"], metrics["acc1"], metrics["acc5"],
                                 metrics["lr"]))
 
                 meters["batch_time"].update(time.time() - end)
                 end = time.time()
                 if step % print_freq == 0 or step % 50 == 0:
-                    m = {k: float(v) for k, v in metrics.items()}
-                    # loss-crash detector: every step in the window is checked
-                    # against the running average before it enters the meter
-                    for s, lval, a1, a5, lrv in pending:
-                        lval = float(lval)
-                        prev_avg = (meters["loss"].avg
-                                    if meters["loss"].count or meters["loss"]._hist else None)
-                        if s > 100 and prev_avg and lval > prev_avg + 0.5:
-                            self.logger.error(
-                                "[CRASH] training loss jumped: %.4f -> %.4f at step %d "
-                                "(lr %.3e)", prev_avg, lval, s, float(lrv),
+                    # reading the window's device scalars waits for the device
+                    with span("solver.log", step=step):
+                        m = {k: float(v) for k, v in metrics.items()}
+                        # loss-crash detector: every step in the window is checked
+                        # against the running average before it enters the meter
+                        for s, lval, a1, a5, lrv in pending:
+                            lval = float(lval)
+                            prev_avg = (meters["loss"].avg if meters["loss"].count
+                                        or meters["loss"]._hist else None)
+                            if s > 100 and prev_avg and lval > prev_avg + 0.5:
+                                self.logger.error(
+                                    "[CRASH] training loss jumped: %.4f -> %.4f at step %d "
+                                    "(lr %.3e)", prev_avg, lval, s, float(lrv),
+                                )
+                            meters["loss"].update(lval)
+                            meters["acc1"].update(float(a1))
+                            meters["acc5"].update(float(a5))
+                        pending = []
+                        if step % print_freq == 0:
+                            remain = (total_step - step) * meters["batch_time"].avg
+                            ctx = batch["tokens"].shape[1]
+                            self.logger.info(
+                                "Iter [%d/%d] loss %.4f (%.4f) acc1 %.2f lr %.3e "
+                                "logit_scale %.3f T %.3f bt %.3fs eta %.0fmin ctx %d",
+                                step, total_step, m["loss"], meters["loss"].avg,
+                                m["acc1"], m["lr"], m["logit_scale"], temperature,
+                                meters["batch_time"].avg, remain / 60, ctx,
                             )
-                        meters["loss"].update(lval)
-                        meters["acc1"].update(float(a1))
-                        meters["acc5"].update(float(a5))
-                    pending = []
-                    if step % print_freq == 0:
-                        remain = (total_step - step) * meters["batch_time"].avg
-                        ctx = batch["tokens"].shape[1]
-                        self.logger.info(
-                            "Iter [%d/%d] loss %.4f (%.4f) acc1 %.2f lr %.3e "
-                            "logit_scale %.3f T %.3f bt %.3fs eta %.0fmin ctx %d",
-                            step, total_step, m["loss"], meters["loss"].avg,
-                            m["acc1"], m["lr"], m["logit_scale"], temperature,
-                            meters["batch_time"].avg, remain / 60, ctx,
-                        )
-                        self.metrics_writer.log(
-                            {"loss_all": m["loss"], "acc1_train": m["acc1"],
-                             "acc5_train": m["acc5"], "lr": m["lr"],
-                             "logit_scale": m["logit_scale"],
-                             "batch_time": meters["batch_time"].avg},
-                            step=step,
-                        )
+                            self.metrics_writer.log(
+                                {"loss_all": m["loss"], "acc1_train": m["acc1"],
+                                 "acc5_train": m["acc5"], "lr": m["lr"],
+                                 "logit_scale": m["logit_scale"],
+                                 "batch_time": meters["batch_time"].avg},
+                                step=step,
+                            )
 
                 if val_freq and step % val_freq == 0:
                     self.evaluate(step)

@@ -22,6 +22,11 @@ the backward) and the InfoNCE over the global batch,
 parameters are read from the wrapped module, so their names (the weight
 decay tree, ``state.trainable``, the checkpoint keys) carry no ``module.``
 prefix.
+
+Under a running ``torch.profiler`` the step opens the spans ``train.step``
+(attrs ``step``, ``ctx``) over ``train.forward`` (the model and the loss),
+``train.backward`` and ``train.update`` (clipping through the codebook hold),
+so every caller of the step gets them (``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import torch
 
 from torch.nn.parallel import DistributedDataParallel
 
+from ..utils.profiling import span
 from .loss import clip_info_nce, clip_info_nce_sharded
 from .optim import adamw_update, clamp_logit_scale, clip_grads
 from .train_state import TrainState
@@ -60,44 +66,52 @@ def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
     params = dict((model.module if data_parallel else model).named_parameters())
 
     def step(state: TrainState, batch: Dict[str, Any], sd_temperature: float):
+        with span("train.step", step=state.step + 1, ctx=batch["tokens"].shape[1]):
+            return _step(state, batch, sd_temperature)
+
+    def _step(state: TrainState, batch: Dict[str, Any], sd_temperature: float):
         for p in params.values():
             p.grad = None
         kwargs = {"sd_temperature": sd_temperature} if is_fdt else {}
-        out = model(batch["image"], batch["tokens"], batch.get("pad_mask"), **kwargs)
+        with span("train.forward"):
+            out = model(batch["image"], batch["tokens"], batch.get("pad_mask"), **kwargs)
+            if data_parallel:
+                loss, metrics = clip_info_nce_sharded(out["image_embed"], out["text_embed"],
+                                                      out["logit_scale"], group=group,
+                                                      reference_scale=reference_scale)
+            else:
+                loss, metrics = clip_info_nce(out["image_embed"], out["text_embed"],
+                                              out["logit_scale"],
+                                              reference_scale=reference_scale)
+        with span("train.backward"):
+            loss.backward()  # under DDP this rank's loss; DDP averages the gradients
         if data_parallel:
-            loss, metrics = clip_info_nce_sharded(out["image_embed"], out["text_embed"],
-                                                  out["logit_scale"], group=group,
-                                                  reference_scale=reference_scale)
-            loss.backward()  # this rank's loss; DDP averages the gradients
             loss = metrics.pop("loss")
-        else:
-            loss, metrics = clip_info_nce(out["image_embed"], out["text_embed"],
-                                          out["logit_scale"], reference_scale=reference_scale)
-            loss.backward()
-        grads = {n: p.grad for n, p in params.items()}
-        clip_grads(grads, grad_clip_type, grad_clip_value)
+        with span("train.update"):
+            grads = {n: p.grad for n, p in params.items()}
+            clip_grads(grads, grad_clip_type, grad_clip_value)
 
-        lr = schedule(state.step + 1)
-        ls = params["logit_scale"]
-        with torch.no_grad():
-            clamp_logit_scale(params, grad_clip_type, grad_clip_value, grad_clip_max_value)
-            before_ls = ls.detach().clone()
-            adamw_update(grads, state.opt_state, params, lr=lr, wd_tree=wd_tree,
-                         trainable=state.trainable, b1=b1, b2=b2, eps=eps)
-            clamp_logit_scale(params, grad_clip_type, grad_clip_value, grad_clip_max_value)
-            if grad_clip_type == "logit_scale_param":  # bound the change per step
-                ls.copy_(torch.clamp(ls, before_ls - grad_clip_value,
-                                     before_ls + grad_clip_value))
-            elif grad_clip_type == "logit_scale_param_ema":
-                buf = state.ema_buffer
-                clipped = torch.clamp(ls, buf - grad_clip_value, buf + grad_clip_value)
-                state.ema_clip_count = state.ema_clip_count + (clipped != ls).float().sum()
-                ls.copy_(clipped)
-                state.ema_buffer = 0.9 * buf + 0.1 * ls.mean()
-            elif grad_clip_type == "constant":
-                ls.copy_(before_ls)
-            if is_fdt and state.hold_codebook:
-                params["space_dict"].copy_(state.stored_codebook)
+            lr = schedule(state.step + 1)
+            ls = params["logit_scale"]
+            with torch.no_grad():
+                clamp_logit_scale(params, grad_clip_type, grad_clip_value, grad_clip_max_value)
+                before_ls = ls.detach().clone()
+                adamw_update(grads, state.opt_state, params, lr=lr, wd_tree=wd_tree,
+                             trainable=state.trainable, b1=b1, b2=b2, eps=eps)
+                clamp_logit_scale(params, grad_clip_type, grad_clip_value, grad_clip_max_value)
+                if grad_clip_type == "logit_scale_param":  # bound the change per step
+                    ls.copy_(torch.clamp(ls, before_ls - grad_clip_value,
+                                         before_ls + grad_clip_value))
+                elif grad_clip_type == "logit_scale_param_ema":
+                    buf = state.ema_buffer
+                    clipped = torch.clamp(ls, buf - grad_clip_value, buf + grad_clip_value)
+                    state.ema_clip_count = state.ema_clip_count + (clipped != ls).float().sum()
+                    ls.copy_(clipped)
+                    state.ema_buffer = 0.9 * buf + 0.1 * ls.mean()
+                elif grad_clip_type == "constant":
+                    ls.copy_(before_ls)
+                if is_fdt and state.hold_codebook:
+                    params["space_dict"].copy_(state.stored_codebook)
         state.step += 1
         return {"loss": loss.detach(), "lr": lr, "logit_scale": ls.detach().mean(), **metrics}
 

@@ -1,40 +1,195 @@
-"""Profiling and step timing.
+"""Profiling: spans, traces and step timing.
 
 Counterpart of ``iterated_learning_for_vlm_tpu/utils/profiling.py``:
 
-- :func:`trace`: a context manager around ``torch.profiler`` (CPU, and CUDA
-  where there is a card) that writes a Chrome trace, ``trace.json``, into
-  ``logdir``;
+- :func:`span`: a named stretch of the program, as a context manager
+  (``with span("train.step", step=3, ctx=32):``) or a decorator
+  (``@span("encode.images")``). It records only while a ``torch.profiler``
+  session runs in the process (``torch.autograd.profiler._is_profiler_enabled``,
+  set at every profiler start whatever its activities). Otherwise it reads
+  that flag and returns the name's shared no-op: no ``record_function``, no
+  clock read, no allocation. While on, it opens
+  ``torch.profiler.record_function(name)``, a ``user_annotation`` in the
+  Chrome trace of a profile with host activity (with CUDA activity too, also
+  a ``gpu_user_annotation`` over its kernels; a CUDA-only trace holds
+  neither), and appends one entry to an in-memory ring of the last
+  :data:`RING` spans: ``name``, ``id``, ``parent`` (the id of the span open
+  around it on the same thread, or None), ``start_ns`` and ``end_ns``
+  (``time.time_ns()``: the Chrome trace's ``ts`` in microseconds is
+  ``(start_ns - baseTimeNanoseconds) / 1000``, with ``baseTimeNanoseconds``
+  from ``trace.json``), ``thread`` (the native thread id, the trace's
+  ``tid``) and ``attrs`` (the counts the call site gave). :func:`spans`
+  returns the record and :func:`clear` empties it. The record is this
+  process's: under data parallelism each rank keeps its own;
+- :func:`trace`: the operator's entry. Wrap a stretch of a run in
+  ``with trace(logdir):`` to profile it (the host, and the card where there is
+  one): at the end it writes ``trace.json``, the Chrome trace with the spans
+  on the device's timeline, and ``spans.json``, the spans recorded during it;
 - :class:`StepTimer`: step timing on the host clock, fenced: ``tick(fence)``
   first waits for the fence (a CUDA tensor's stream, a ``torch.cuda.Event``
   or a ``torch.cuda.Stream``), so a step is timed to the end of its device
   work and not to the end of its enqueue; p50 / p90 summaries;
 - :func:`device_memory_stats`: each CUDA device's allocator snapshot under
   the JAX package's keys.
+
+The spans the port opens, by layer (the names are what the benchmark's
+readers and ``PERF.md`` use): the Solver loop, ``solver.next_batch``,
+``il.on_step`` and ``solver.log``; the train step, ``train.step`` over
+``train.forward``, ``train.backward`` and ``train.update``; zero-shot eval,
+``zeroshot.classifier``; the eval encoder, ``encode.tokenize``,
+``encode.text_batch``, ``encode.images`` over ``encode.preprocess`` and
+``encode.image_batch``, and ``encode.fetch`` (a batch's result copied to the
+host, where the host waits for the device).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
+import itertools
+import json
 import os
+import threading
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+RING = 1 << 16  # spans kept; the oldest go first
+
+_record: collections.deque = collections.deque(maxlen=RING)
+_ids = itertools.count(1)
+_open = threading.local()  # .stack: the ids of this thread's open spans
+
+
+def _stack() -> list:
+    try:
+        return _open.stack
+    except AttributeError:
+        _open.stack = []
+        return _open.stack
+
+
+class _Off:
+    """What :func:`span` returns while no profiler runs: one per name, shared,
+    so a span off allocates nothing."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __call__(self, fn):
+        return _spanned(self.name, fn)
+
+
+class _Span:
+    """A span opened while a profiler runs."""
+
+    __slots__ = ("name", "attrs", "_rf", "_id", "_parent", "_start")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name = name
+        self.attrs = attrs
+
+    def __enter__(self):
+        stack = _stack()
+        self._parent = stack[-1] if stack else None
+        self._id = next(_ids)
+        stack.append(self._id)
+        self._rf = torch.profiler.record_function(self.name)
+        # the profiler stamps the annotation's start somewhere inside
+        # __enter__; its first annotation in a session spends tens of us on
+        # either side of the stamp, so the start is the call's midpoint
+        before = time.time_ns()
+        self._rf.__enter__()
+        self._start = (before + time.time_ns()) // 2
+        return self
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        end = time.time_ns()  # the exit's work after its stamp is a few us
+        _stack().remove(self._id)
+        _record.append((self.name, self._id, self._parent, self._start, end,
+                        threading.get_native_id(), self.attrs))
+        return False
+
+    def __call__(self, fn):
+        return _spanned(self.name, fn)
+
+
+_OFF: Dict[str, _Off] = {}
+
+# A process's first record_function spends ~0.5 ms after the profiler's stamp
+# (binding its handle). Taken here, with no profiler running, it records
+# nothing, and a span's midpoint start stays within a few us of its stamp.
+if not _autograd_profiler._is_profiler_enabled:
+    with torch.profiler.record_function("profiling.warm"):
+        pass
+
+
+def span(name: str, **attrs):
+    """A named stretch of the program with the counts taken at its start
+    (``attrs``), as a context manager; spans opened on one thread nest (see
+    the module docstring). As a decorator, ``@span(name)``, it spans each call
+    under ``name`` alone: a decorator sees no call site's counts."""
+    if not _autograd_profiler._is_profiler_enabled:
+        off = _OFF.get(name)
+        if off is None:
+            off = _OFF[name] = _Off(name)
+        return off
+    return _Span(name, attrs)
+
+
+def _spanned(name: str, fn):
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        if not _autograd_profiler._is_profiler_enabled:
+            return fn(*args, **kwargs)
+        with _Span(name, {}):
+            return fn(*args, **kwargs)
+
+    return call
+
+
+_FIELDS = ("name", "id", "parent", "start_ns", "end_ns", "thread", "attrs")
+
+
+def spans() -> List[dict]:
+    """The recorded spans, oldest first by their end, as dicts of
+    ``name, id, parent, start_ns, end_ns, thread, attrs``."""
+    return [dict(zip(_FIELDS, entry)) for entry in list(_record)]
+
+
+def clear() -> None:
+    """Empty the record."""
+    _record.clear()
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """Profile the block; the trace goes to ``<logdir>/trace.json``."""
+    """Profile the block; the Chrome trace goes to ``<logdir>/trace.json`` and
+    the spans that began in the block to ``<logdir>/spans.json``."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    start = time.time_ns()
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    with open(os.path.join(logdir, "spans.json"), "w") as f:
+        json.dump([s for s in spans() if s["start_ns"] >= start], f)
 
 
 def fence(value) -> None:
