@@ -18,7 +18,8 @@ Counterpart of ``iterated_learning_for_vlm_tpu/utils/profiling.py``:
   (``time.time_ns()``: the Chrome trace's ``ts`` in microseconds is
   ``(start_ns - baseTimeNanoseconds) / 1000``, with ``baseTimeNanoseconds``
   from ``trace.json``), ``thread`` (the native thread id, the trace's
-  ``tid``) and ``attrs`` (the counts the call site gave). :func:`spans`
+  ``tid``) and ``attrs`` (the counts the call site gave, at the start or,
+  through the span's ``set(**attrs)``, before its end). :func:`spans`
   returns the record and :func:`clear` empties it. The record is this
   process's: under data parallelism each rank keeps its own;
 - :func:`trace`: the operator's entry. Wrap a stretch of a run in
@@ -87,6 +88,9 @@ class _Off:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs):
+        pass
+
     def __call__(self, fn):
         return _spanned(self.name, fn)
 
@@ -121,6 +125,10 @@ class _Span:
         _record.append((self.name, self._id, self._parent, self._start, end,
                         threading.get_native_id(), self.attrs))
         return False
+
+    def set(self, **attrs):
+        """Add counts known only inside the stretch (before it ends)."""
+        self.attrs.update(attrs)
 
     def __call__(self, fn):
         return _spanned(self.name, fn)

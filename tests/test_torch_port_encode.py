@@ -178,3 +178,128 @@ def test_serving_cast_refuses_an_fp32_model():
     model = model_entry(small_cfg(fused=True), device="cpu")
     with pytest.raises(ValueError, match="weight_dtype"):
         TorchEncoder(model, tokenizer=WordTokenizer(), weight_dtype=torch.bfloat16)
+
+
+# -- CUDA graphs of the text encode: the key's rules, through a stand-in -----
+
+class StubGraph:
+    """Stands in for ``encode._TextGraph`` on the CPU: takes every tensor,
+    records each capture's input shape, and computes eagerly what a replay
+    of the same encode gives."""
+
+    def __init__(self, tokens, pad_mask):
+        self.tokens, self.pad_mask = tokens, pad_mask
+
+    def capture(self, encode):
+        self.encode = encode
+        StubGraph.captured.append(tuple(self.tokens.shape))
+        return encode(self.tokens, self.pad_mask)
+
+    @staticmethod
+    def takes(tokens):
+        return True
+
+    def __call__(self, tokens, pad_mask):
+        return self.encode(tokens, pad_mask)
+
+
+def _graph_counts(enc):
+    return enc.text_graph_eager, enc.text_graph_captures, enc.text_graph_replays
+
+
+def _small_encoder(seed=0):
+    model = model_entry(small_cfg(fused=True), device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
+    return TorchEncoder(model, tokenizer=WordTokenizer(), batch_size=4, text_buckets=(8,),
+                        sd_temperature=0.7, num_workers=1)
+
+
+@pytest.fixture
+def stub_graphs(monkeypatch):
+    from iterated_learning_for_vlm_tpu_torch.eval import encode as encode_mod
+
+    StubGraph.captured = []
+    monkeypatch.setattr(encode_mod, "_TextGraph", StubGraph)
+    return StubGraph.captured
+
+
+def test_cpu_encoder_never_captures():
+    """On the CPU every text call runs eager: no graph, no key kept."""
+    enc = _small_encoder()
+    first = enc.encode_texts(CAPTIONS)
+    for _ in range(2):
+        assert np.array_equal(enc.encode_texts(CAPTIONS), first)
+    assert _graph_counts(enc) == (6, 0, 0)
+    assert enc._text_graphs == {}
+
+
+def test_text_graph_captures_on_a_keys_second_call(stub_graphs):
+    """A key's first call runs eager, its second captures, the rest replay;
+    each bucket is its own key; every result equals the eager encoder's."""
+    enc, plain = _small_encoder(), _small_encoder()
+    want = plain.encode_texts(CAPTIONS)
+    for n in range(1, 5):
+        assert np.array_equal(enc.encode_texts(CAPTIONS[:4]), want[:4])
+        assert _graph_counts(enc) == (1, int(n >= 2), max(n - 2, 0))
+    assert stub_graphs == [(4, 8)]
+    assert np.array_equal(enc.encode_texts(CAPTIONS), want)  # ctx 8 replays, ctx 12 is new
+    assert _graph_counts(enc) == (2, 1, 3)
+    assert stub_graphs == [(4, 8)]
+
+
+@pytest.mark.parametrize("change,mode", [
+    ("nothing", "replay"), ("param_in_place", "replay"), ("param_replaced", "eager"),
+    ("model_cast_and_back", "eager"), ("temperature", "eager"), ("normalize", "eager"),
+    ("rows", "eager"),
+])
+def test_text_graph_key(stub_graphs, change, mode):
+    """After a key's capture, the next call replays unless what the graph
+    read changed: a parameter replaced by a new tensor (another address) or
+    the temperature starts a new key, as do another ``normalize`` or shape; a
+    parameter updated in place keeps its address, and the replay reads it."""
+    enc = _small_encoder()
+    tokens, pad = WordTokenizer()(CAPTIONS[:4])
+    tokens = torch.from_numpy(tokens.astype(np.int64))[:, :8]
+    pad = torch.from_numpy(pad)[:, :8]
+    for _ in range(2):
+        enc.text_batch(tokens, pad)
+    assert _graph_counts(enc) == (1, 1, 0)
+    weight = enc.model.encode_text.text_projection.weight
+    normalize = None
+    with torch.no_grad():
+        if change == "param_in_place":
+            weight.mul_(2.0)
+        elif change == "param_replaced":
+            weight.data = weight.data * 2.0
+        elif change == "model_cast_and_back":
+            enc.model.to(torch.float64).to(torch.float32)
+        elif change == "temperature":
+            enc.sd_temperature = 0.9
+        elif change == "normalize":
+            normalize = False
+        elif change == "rows":
+            tokens, pad = tokens[:3], pad[:3]
+    got = enc.text_batch(tokens, pad, normalize)
+    assert enc._text_mode == mode
+    assert _graph_counts(enc) == ((1, 1, 1) if mode == "replay" else (2, 1, 0))
+    fresh = _small_encoder()
+    fresh.model.load_state_dict(enc.model.state_dict())
+    fresh.sd_temperature = enc.sd_temperature
+    assert torch.equal(got, fresh.text_batch(tokens, pad, normalize))
+
+
+def test_text_batch_span_names_the_graph_mode(stub_graphs):
+    """Under a profiler each ``encode.text_batch`` span carries ``graph``:
+    eager, capture, then replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from iterated_learning_for_vlm_tpu_torch.utils import profiling
+
+    enc = _small_encoder()
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            enc.encode_texts(CAPTIONS[:4])
+    modes = [s["attrs"]["graph"] for s in profiling.spans() if s["name"] == "encode.text_batch"]
+    profiling.clear()
+    assert modes == ["eager", "capture", "replay"]

@@ -1310,3 +1310,117 @@ def test_ddp_on_one_card_over_gloo(dev, tmp_path):
             cos = torch.nn.functional.cosine_similarity(
                 torch.from_numpy(ga).flatten(), p.grad.float().cpu().flatten(), dim=0).item()
             assert cos >= 0.98, (n, cos)
+
+
+# -- the eval encoder's text call as a CUDA graph ----------------------------
+
+# a prompt's length for each text bucket of a 77-token context
+GRAPH_LENGTHS = {16: (4, 16), 32: (17, 32), 77: (33, 77)}
+
+
+def _graph_model(dev, kind):
+    """The small bf16 CLIP-FDT of ``_small_cfg`` (K2, K1 and the bisection
+    sparsemax) or a CLIP of the same towers on K2, with a 77-token context
+    so that every bucket (16, 32, 77) exists."""
+    cfg = _small_cfg(True)
+    cfg["kwargs"]["text_encode"]["context_length"] = 77
+    if kind == "clip":
+        cfg = {"type": "clip_vitb32",
+               "kwargs": {k: v for k, v in cfg["kwargs"].items() if k != "fdt"}}
+    return model_entry(cfg, device=dev, generator=_gen(3))
+
+
+def _graph_prompts(seed, rows, ctx):
+    """Host token ids and pad mask ``[rows, 77]`` whose lengths pick bucket
+    ``ctx``; the EOT (id 299, the highest) ends each prompt."""
+    rng = np.random.default_rng(seed)
+    lo, hi = GRAPH_LENGTHS[ctx]
+    lengths = rng.integers(lo, hi + 1, rows)
+    lengths[0] = hi
+    tokens = rng.integers(1, 299, (rows, 77))
+    pad = np.zeros((rows, 77), np.float32)
+    for i, n in enumerate(lengths):
+        tokens[i, n - 1], tokens[i, n:], pad[i, n:] = 299, 0, -np.inf
+    return tokens, pad
+
+
+def _eager_texts(model, tokens, pad, normalize=True, temperature=None):
+    """The same call on a fresh encoder: its first call of a key runs eager."""
+    from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder
+
+    enc = TorchEncoder(model, batch_size=8, normalize=normalize, sd_temperature=temperature)
+    out = enc.encode_texts_tokens(tokens, pad)
+    assert (enc.text_graph_eager, enc.text_graph_captures) == (1, 0)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["fdt", "clip"])
+@pytest.mark.parametrize("ctx", [16, 32, 77])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("rows", [8, 5])
+def test_text_graph_replay_is_the_eager_call(dev, kind, ctx, normalize, rows):
+    """Four calls of one key (a full batch of 8, or 5 rows padded to 8), each
+    with other prompts: eager, capture, replay, replay, each bit for bit the
+    eager call of a fresh encoder. The counters read 1 / 1 / 2, and K2-fwd
+    and K1-fwd launched as four eager calls launch."""
+    from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder
+
+    model = _graph_model(dev, kind)
+    enc = TorchEncoder(model, batch_size=8, normalize=normalize)
+    calls = [_graph_prompts(seed, rows, ctx) for seed in range(4)]
+    before = _counts()
+    got = [enc.encode_texts_tokens(tokens, pad) for tokens, pad in calls]
+    torch.cuda.synchronize()
+    launched = _deltas(before)
+    assert (enc.text_graph_eager, enc.text_graph_captures, enc.text_graph_replays) == (1, 1, 2)
+    assert launched == ([4 * 2, 0, 4 * (kind == "fdt"), 0, 0, 0, 0], 0, 0)
+    for (tokens, pad), out in zip(calls, got):
+        assert out.shape == (rows, 64)
+        assert np.array_equal(out, _eager_texts(model, tokens, pad, normalize))
+
+
+@pytest.mark.parametrize("change", ["temperature", "param_replaced", "param_in_place"])
+def test_text_graph_follows_the_weights(dev, change):
+    """After a capture, a new temperature or a parameter replaced by a new
+    tensor starts a new key (eager, then a new capture); a parameter updated
+    in place is read by the next replay. Every result follows the new values,
+    bit for bit a fresh encoder's eager call."""
+    from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder
+
+    model = _graph_model(dev, "fdt")
+    enc = TorchEncoder(model, batch_size=8)
+    tokens, pad = _graph_prompts(0, 8, 16)
+    old = [enc.encode_texts_tokens(tokens, pad) for _ in range(3)]
+    weight = model.txt_query_model.q_map[4].weight
+    with torch.no_grad():
+        if change == "temperature":
+            enc.sd_temperature = 0.5
+        elif change == "param_replaced":
+            weight.data = weight.data * 2.0
+        else:
+            weight.mul_(2.0)
+    new = [enc.encode_texts_tokens(tokens, pad) for _ in range(3)]
+    modes = (enc.text_graph_eager, enc.text_graph_captures, enc.text_graph_replays)
+    assert modes == ((1, 1, 4) if change == "param_in_place" else (2, 2, 2))
+    want = _eager_texts(model, tokens, pad, temperature=enc.sd_temperature)
+    assert not np.array_equal(want, old[0])
+    for out in new:
+        assert np.array_equal(out, want)
+
+
+def test_text_graph_result_outlives_the_next_call(dev):
+    """``text_batch`` returns a tensor of its own: a replay's result is not
+    overwritten by the next replay."""
+    from iterated_learning_for_vlm_tpu_torch.eval.encode import TorchEncoder
+
+    enc = TorchEncoder(_graph_model(dev, "fdt"), batch_size=8)
+    a, b = (tuple(torch.from_numpy(x[:, :16]).to(dev) for x in _graph_prompts(s, 8, 16))
+            for s in (0, 1))
+    for _ in range(2):
+        enc.text_batch(*a)
+    first = enc.text_batch(*a)
+    kept = first.clone()
+    second = enc.text_batch(*b)
+    torch.cuda.synchronize()
+    assert enc.text_graph_replays == 2
+    assert torch.equal(first, kept) and not torch.equal(first, second)

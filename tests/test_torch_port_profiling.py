@@ -127,7 +127,7 @@ EXPECTED = {
     "zeroshot.classifier": (1, {None: 1}, [{"classes": 3}]),
     "encode.tokenize": (3, {"zeroshot.classifier": 3}, [{"rows": 3, "ctx": 16}] * 3),
     "encode.text_batch": (3, {"zeroshot.classifier": 3},
-                          [{"rows": 3, "padded": BATCH, "ctx": 16}] * 3),
+                          [{"rows": 3, "padded": BATCH, "ctx": 16, "graph": "eager"}] * 3),
     "encode.images": (1, {None: 1}, [{"rows": IMAGES}]),
     "encode.preprocess": (1, {"encode.images": 1}, [{"rows": IMAGES}]),
     "encode.image_batch": (2, {"encode.images": 2},
