@@ -33,6 +33,15 @@ and depth, bf16, both kernels on, random weights from seed 0),
    plain versions, q/k/v taken as the column blocks of one packed [B, S, 3D]
    tensor, at the vision (S=50), text (S=77 and 32, the causal flag) and
    ViT-B/16 (S=197) shapes, and S=77 with the causal mask as a bias;
+3d. window attention: K4-fwd and K4-bwd (dqkv, and the bias's gradient; a
+   second call equal bit for bit) against their plain versions at
+   Swin-MoE-B's stages at 256 images (stage 0: N=144, 4 heads, shifted,
+   with its 16 windows' masks; stage 2: N=144, 16 heads; stage 3: N=36, 32
+   heads), beside SDPA with each window's bias as its ``attn_mask``; then
+   one train step of CLIP Swin-MoE-B from ``configs/clip_swinmoe_b_cc3m.yaml``'s
+   model block at 256 pairs, ctx 32 (K4's counters reset just before, read
+   just after: 24 launches each way; the MoE layers' counters), its time
+   and peak memory;
 4. serve: reset the launch counters, encode 256 images and 256 texts at the
    ctx-32 and ctx-77 buckets, read the counters; embeddings must be finite,
    unit-norm, match the plain path within a cosine bound, and every forward
@@ -187,7 +196,9 @@ knob that got the plain path) just before and requires them at 0 just
 after, so the main path never slips onto the plain route unseen.
 
 Any failure exits non-zero. The line before the last is the kernels JSON
-(each kernel's train-step launches, its launches in phase 11's and phase 12's runs,
+(each kernel's train-step launches; for K4 the Swin-MoE step's and its
+launches in every later phase of this process, which must be none; for the
+others their launches in phase 11's and phase 12's runs,
 in phase 13's eval runs, in phase 14's runs and on rank 0 in phase 15's run A,
 error, times, bound and library time at its first shape),
 the last ``{"ok": true, "device": {...}}``. All numbers also go to
@@ -227,6 +238,11 @@ KERNELS = {
     "tiny_attention_bwd": (CSRC + "tiny_attention_bwd.cu", JAX_OPS + "fused_attention.py:173"),
     "flash_attention_fwd": (CSRC + "flash_attention_fwd.cu", JAX_OPS + "flash_attention.py:29"),
     "flash_attention_bwd": (CSRC + "flash_attention_bwd.cu", JAX_OPS + "flash_attention.py:45"),
+    # no TPU kernel stands behind K4: the JAX tower's window attention is two einsums
+    "window_attention_fwd": (CSRC + "window_attention_fwd.cu",
+                             "iterated_learning_for_vlm_tpu/models/swin.py:91"),
+    "window_attention_bwd": (CSRC + "window_attention_bwd.cu",
+                             "iterated_learning_for_vlm_tpu/models/swin.py:91"),
 }
 # launches of one train step: 12 layers x 2 towers of K2 each way, one K1 per tower
 TRAIN_LAUNCHES = {"tiny_attention_fwd": 24, "tiny_attention_bwd": 24, "codebook_pool_fwd": 2,
@@ -236,6 +252,8 @@ TRAIN_LAUNCHES = {"tiny_attention_fwd": 24, "tiny_attention_bwd": 24, "codebook_
 CLIP_SERVE_LAUNCHES = {name: 0 for name in TRAIN_LAUNCHES} | {"flash_attention_fwd": 36}
 CLIP_TRAIN_LAUNCHES = {name: 0 for name in TRAIN_LAUNCHES} | {"flash_attention_fwd": 24,
                                                               "flash_attention_bwd": 24}
+# launches of one Swin-MoE-B train step: K4 each way in each of the 24 blocks
+SWIN_LAUNCHES = {"window_attention_fwd": 24, "window_attention_bwd": 24}
 # K2 output: bf16 rounding of fp32 sums taken in another order (and p rounded
 # to bf16 before p @ v on both sides): two bf16 ulps at |out| <= 2, plus 1%.
 ATTN_ATOL, ATTN_RTOL = 2e-2, 1e-2
@@ -272,6 +290,14 @@ LSE_ATOL = 1e-4
 TRAIN_LOSS_ATOL = 1e-2
 GRAD_MIN_COS = 0.98
 SCALAR_GRAD_RTOL = 5e-2  # one-element parameters (logit_scale): relative error
+# K4-fwd and K4-bwd round at the same places as their plain versions (p and ds
+# to bf16 before the products, fp32 sums in another order, one rounding of
+# each output): as K2's.
+WIN_ATOL, WIN_RTOL = 2e-2, 1e-2
+# K4-bwd's bias gradient sums W fp32 ds values per entry in another order (the
+# blocks' strided window sets, then their partials): relative to its norm,
+# fp32 noise that grows as sqrt(W) ulps, well under 1e-4 at W = 4096.
+WIN_DBIAS_RTOL = 1e-4
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): a kernel's
 # bound is the larger of its bytes over HBM_BPS and its operations over BF16_FLOPS
 HBM_BPS = 3.35e12
@@ -378,9 +404,9 @@ def nbytes(*tensors) -> int:
 
 
 def sdpa_fwd(q, k, v, causal, mask=None):
-    """``scaled_dot_product_attention`` on the [B, H, S, 64] views of q, k, v
-    ([B, S, H, 64]); with ``mask``, an [S, S] additive ``attn_mask`` in q's
-    dtype in place of ``is_causal``."""
+    """``scaled_dot_product_attention`` on the [B, H, S, D] views of q, k, v
+    ([B, S, H, D]); with ``mask``, an additive ``attn_mask`` ([S, S] or
+    [B, H, S, S]) in q's dtype in place of ``is_causal``."""
     heads = [t.transpose(1, 2) for t in (q, k, v)]
     kw = {"is_causal": causal} if mask is None else {"attn_mask": mask.to(q.dtype)}
     return lambda: torch.nn.functional.scaled_dot_product_attention(*heads, **kw)
@@ -388,7 +414,7 @@ def sdpa_fwd(q, k, v, causal, mask=None):
 
 def sdpa_fwd_bwd(q, k, v, causal, dout, mask=None):
     """The same forward and its backward through autograd, for the output
-    gradient ``dout`` ([B, S, H, 64])."""
+    gradient ``dout`` ([B, S, H, D])."""
     leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
     grad = dout.transpose(1, 2)
     kw = {"is_causal": causal} if mask is None else {"attn_mask": mask.to(q.dtype)}
@@ -670,6 +696,130 @@ def flash_case(dev, name, b, s, h, causal, route="flag"):
     log(f"kernel flash_attention_fwd+bwd {name} (the two as a train step runs them, beside "
         f"the library's forward + backward): {timing_text(rows[-1])}")
     return rows
+
+
+# -- phase 3d: K4, Swin's window attention, against its plain versions -------
+def window_case(dev, name, nw, ws, heads, shifted):
+    """K4-fwd and K4-bwd (dqkv and the bias's gradient) against their plain
+    versions at one stage of Swin-MoE-B at ``BATCH`` images: ``nw`` windows
+    of ws x ws tokens an image, head width 32, the bias of a random
+    relative-position table plus, when ``shifted``, the shift mask. Returns
+    the forward and the backward rows."""
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    g = torch.Generator(device=dev).manual_seed(ws * 100 + heads)
+    n, c, w = ws * ws, 32 * heads, BATCH * nw
+    qkv = torch.randn(w, n, 3 * c, generator=g, device=dev).to(torch.bfloat16)
+    table = 0.5 * torch.randn((2 * ws - 1) ** 2, heads, generator=g, device=dev)
+    index = torch.from_numpy(wa.relative_position_index(ws)).to(dev)
+    rel = wa.RelativePositionBias.apply(table, index, ws)
+    hw = ws * round(nw ** 0.5)
+    mask = torch.from_numpy(wa.shift_mask(hw, ws, ws // 2)).to(dev) if shifted else None
+    bias = wa.combined_bias(rel, mask)
+    dout = torch.randn(w, n, c, generator=g, device=dev).to(torch.bfloat16)
+    # the yardstick: SDPA over [W, H, N, 32] with the bias per window as its attn_mask
+    q, k, v = (t.reshape(w, n, heads, 32) for t in qkv.split(c, dim=-1))
+    per_window = bias.repeat(w // bias.shape[0], 1, 1, 1)
+    lib_fwd = sdpa_fwd(q, k, v, False, per_window)
+    lib_bwd = sdpa_fwd_bwd(q, k, v, False, dout.reshape(w, n, heads, 32), per_window)
+    del per_window
+
+    got = wa.window_attention_fwd(qkv, bias, heads)
+    ref = wa.window_attention_reference(qkv, bias, heads)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs()
+    ok = bool(torch.all(err <= WIN_ATOL + WIN_RTOL * ref.float().abs()))
+    fwd = {"case": name, "max_abs_err": err.max().item(), "atol": WIN_ATOL, "rtol": WIN_RTOL,
+           "within_tol": ok}
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(nbytes(qkv, bias, got),
+                                                2.0 * 2 * w * heads * n * n * 32)
+    del got, ref, err
+    timed_row(fwd, lambda: wa.window_attention_reference(qkv, bias, heads),
+              lambda: wa.window_attention_fwd(qkv, bias, heads), lib_fwd)
+    log(f"kernel window_attention_fwd {name}: max_abs_err={fwd['max_abs_err']:.3e} "
+        f"(tol {WIN_ATOL} + {WIN_RTOL}*|ref|) ok={ok} {timing_text(fwd)}")
+    check(ok, f"window_attention_fwd {name} disagrees with window_attention_reference")
+
+    dqkv, dbias = wa.window_attention_bwd(qkv, bias, heads, dout)
+    ref_dqkv, ref_dbias = wa.window_attention_bwd_reference(qkv, bias, heads, dout)
+    again = wa.window_attention_bwd(qkv, bias, heads, dout)
+    torch.cuda.synchronize()
+    err = (dqkv.float() - ref_dqkv.float()).abs()
+    ok = bool(torch.all(err <= WIN_ATOL + WIN_RTOL * ref_dqkv.float().abs()))
+    gap = ((dbias - ref_dbias).norm() / ref_dbias.norm()).item()
+    repeat = torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
+    bwd = {"case": name, "max_abs_err": err.max().item(), "atol": WIN_ATOL, "rtol": WIN_RTOL,
+           "within_tol": ok, "dbias_rel_err": gap, "dbias_rtol": WIN_DBIAS_RTOL,
+           "repeats_bit_for_bit": repeat}
+    bwd["bound_ms"], bwd["bound_by"] = bound_ms(nbytes(qkv, bias, dout, dqkv, dbias),
+                                                2.0 * 5 * w * heads * n * n * 32)
+    del dqkv, dbias, ref_dqkv, ref_dbias, again, err
+    timed_row(bwd, lambda: wa.window_attention_bwd_reference(qkv, bias, heads, dout),
+              lambda: wa.window_attention_bwd(qkv, bias, heads, dout), lib_bwd)
+    log(f"kernel window_attention_bwd {name}: dqkv max_abs_err={bwd['max_abs_err']:.3e} "
+        f"(tol {WIN_ATOL} + {WIN_RTOL}*|ref|) ok={ok}; dbias |diff|/|ref| {gap:.3e} (tol "
+        f"{WIN_DBIAS_RTOL}); a second call equal bit for bit: {repeat} {timing_text(bwd)} "
+        f"(library: forward + backward)")
+    check(ok and gap <= WIN_DBIAS_RTOL and repeat,
+          f"window_attention_bwd {name} disagrees with window_attention_bwd_reference")
+    return fwd, bwd
+
+
+def swin_phase(dev, report):
+    """One Swin-MoE train step at batch 256 from ``configs/clip_swinmoe_b_cc3m.yaml``'s
+    model block (published widths, bf16), K4's counters reset just before
+    and read just after: 24 launches each way, finite loss and moe_aux, the
+    MoE layers' counters; then the step's time and peak memory. Returns the
+    launches; the model is freed."""
+    from iterated_learning_for_vlm_tpu_torch.models import model_entry
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+    from iterated_learning_for_vlm_tpu_torch.utils.config import load_config
+
+    block = load_config(str(REPO / "configs" / "clip_swinmoe_b_cc3m.yaml")).model.to_dict()
+    model = model_entry(block, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED))
+    params, state, step = make_trainer(model, is_fdt=False)
+    rng = np.random.default_rng(SEED + 16)
+    res = model.visual.cfg.input_resolution
+    tokens, pad = make_texts(rng, BATCH, 32, 32)
+    batch = {"image": torch.from_numpy(rng.standard_normal((BATCH, res, res, 3),
+                                                           dtype=np.float32)).to(dev),
+             "tokens": torch.from_numpy(tokens).to(dev), "pad_mask": torch.from_numpy(pad).to(dev)}
+    moe = model.visual.moe_layers()
+    step(state, batch, TRAIN_TEMPERATURE)  # first call: cuBLAS set-up, outside the count
+    sync()
+    reset_counters(wa.window_attention_fwd, wa.window_attention_bwd)
+    for layer in moe:
+        layer.counters = None
+    metrics = step(state, batch, TRAIN_TEMPERATURE)
+    sync()
+    launches = {"window_attention_fwd": wa.window_attention_fwd.launches,
+                "window_attention_bwd": wa.window_attention_bwd.launches}
+    loss = metrics["loss"].item()
+    routed, kept, slots, largest = (int(v) for v in torch.stack([m.counters for m in moe])
+                                    .sum(dim=0).cpu())
+    want_routed = sum(BATCH * blk.resolution ** 2 for stage in model.visual.layers
+                      for blk in stage.blocks if blk.moe)
+    log(f"swin-moe train step bs{BATCH} ctx32 {res}px: loss {loss:.6f}; launches {launches}; "
+        f"{len(moe)} MoE layers: routed {routed}, kept {kept} ({kept / slots:.4f} of {slots} "
+        f"slots), the largest expert load summed over layers {largest}")
+    check(np.isfinite(loss), "the Swin-MoE train step's loss is not finite")
+    check(launches == SWIN_LAUNCHES, f"swin-moe launches {launches}, expected {SWIN_LAUNCHES}")
+    check(routed == want_routed and 0 < kept <= min(routed, slots),
+          f"MoE counters routed {routed} (expected {want_routed}), kept {kept}, slots {slots}")
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: step(state, batch, TRAIN_TEMPERATURE), iters=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"timing swin-moe train step bs{BATCH} ctx32: {ms:.3f} ms ({BATCH / ms * 1e3:.1f} "
+        f"pairs/s, CUDA events over 5 steps); peak memory {peak / 2**30:.2f} GiB")
+    report["swin_step"] = {"loss": loss, "launches": launches, "moe_routed": routed,
+                           "moe_kept": kept, "moe_slots": slots, "ms": ms,
+                           "pairs_per_s": BATCH / ms * 1e3, "peak_mem_bytes": peak}
+    del model, params, state, step, batch, moe, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counters(wa.window_attention_fwd, wa.window_attention_bwd)
+    return launches
 
 
 # -- phase 4: the serving path ----------------------------------------------
@@ -2785,6 +2935,17 @@ def main() -> int:
     report["kernel_checks"].update({"flash_attention_fwd": k3f, "flash_attention_bwd": k3b,
                                     "flash_attention_fwd_bwd": [r[2] for r in k3]})
 
+    # 3d. K4 against its plain versions at Swin-MoE-B's stages, then its
+    # launches in a Swin-MoE train step
+    k4 = [window_case(dev, f"stage 0 B={BATCH} N=144 H=4 shifted", 16, 12, 4, True),
+          window_case(dev, f"stage 2 B={BATCH} N=144 H=16", 1, 12, 16, False),
+          window_case(dev, f"stage 3 B={BATCH} N=36 H=32", 1, 6, 32, False)]
+    k4f, k4b = [r[0] for r in k4], [r[1] for r in k4]
+    report["kernel_checks"].update({"window_attention_fwd": k4f, "window_attention_bwd": k4b})
+    gc.collect()
+    torch.cuda.empty_cache()
+    swin_launches = swin_phase(dev, report)
+
     # 4. the serving path, kernel path and plain path from the same weights
     model = model_entry(model_config(True), device=dev,
                         generator=torch.Generator(device=dev).manual_seed(SEED))
@@ -2987,10 +3148,25 @@ def main() -> int:
     checks = {"codebook_pool_fwd": k1, "tiny_attention_fwd": k2, "tiny_attention_bwd": k2b,
               "codebook_pool_bwd_dq": [r for r in k1b if r["entry"] == "codebook_pool_bwd_dq"],
               "codebook_pool_bwd_dsd": [r for r in k1b if r["entry"] == "codebook_pool_bwd_dsd"],
-              "flash_attention_fwd": k3f, "flash_attention_bwd": k3b}
+              "flash_attention_fwd": k3f, "flash_attention_bwd": k3b,
+              "window_attention_fwd": k4f, "window_attention_bwd": k4b}
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    # K4 after phase 3d: no other phase of this process runs a Swin tower
+    k4_after = {"window_attention_fwd": wa.window_attention_fwd.launches,
+                "window_attention_bwd": wa.window_attention_bwd.launches}
+    check(not any(k4_after.values()), f"K4 launched {k4_after} outside the Swin-MoE phase")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         rows = checks[name]
+        if name in SWIN_LAUNCHES:  # the Swin-MoE train step's launches (phase 3d)
+            kernels.append({"name": name, "route": "cuda", "source": source,
+                            "replaces": replaces, "launches": swin_launches[name],
+                            "max_abs_err": max(r["max_abs_err"] for r in rows),
+                            **{key: rows[0][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                             "bound_by", "library_ms")},
+                            "shape": rows[0]["case"], "launches_other_phases": k4_after[name]})
+            continue
         # each kernel's launches in the train step of the path that runs it:
         # CLIP-FDT (phase 6) for K1 and K2, the CLIP flash route (phase 9) for K3
         flash = name.startswith("flash")

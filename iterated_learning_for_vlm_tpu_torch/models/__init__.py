@@ -8,9 +8,10 @@ tower-wide knobs) and returns an ``nn.Module`` whose parameters live on
 built on the CUDA card, and building raises where there is none: the CPU
 takes it only when asked (``device="cpu"``). Ported so far: the baseline
 ``clip_vitb32`` and ``clip_vitb16``, ``clip_vitb32_auxilary`` (the same
-model: the towers give attention maps on request, ``return_attn``) and
-``clip_fdt_vitb32`` / ``clip_fdt_vitb16``; the other JAX model types raise a
-``KeyError`` that says so.
+model: the towers give attention maps on request, ``return_attn``),
+``clip_fdt_vitb32`` / ``clip_fdt_vitb16`` and ``clip_swinMoE_B`` (CLIP with
+the Swin-MoE-B image tower, ``models/swin.py``); the other JAX model types,
+the other Swin towers among them, raise a ``KeyError`` that says so.
 """
 from __future__ import annotations
 
@@ -22,13 +23,14 @@ from .clip import CLIP
 from .fdt import CLIPFDT, FDTConfig, QueryModel
 from .layers import init_module_tree
 from .sparsemax import sparsemax, sparsemax_bisect
+from .swin import SwinConfig, SwinTransformer, swin_moe_b
 from .text import TextConfig, TextTransformer, text_base
 from .vit import VisionConfig, VisionTransformer, vit_b16, vit_b32
 
 __all__ = [
-    "CLIP", "CLIPFDT", "FDTConfig", "QueryModel", "TextConfig", "TextTransformer",
-    "VisionConfig", "VisionTransformer", "model_entry", "resolve_device", "sparsemax",
-    "sparsemax_bisect",
+    "CLIP", "CLIPFDT", "FDTConfig", "QueryModel", "SwinConfig", "SwinTransformer",
+    "TextConfig", "TextTransformer", "VisionConfig", "VisionTransformer", "model_entry",
+    "resolve_device", "sparsemax", "sparsemax_bisect",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -37,7 +39,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.b
 # model types of the JAX package that the port does not build yet
 UNPORTED = (
     "clip_vitL14", "clip_vitL16", "clip_res50", "clip_res101",
-    "clip_swinB_v2", "clip_swinL", "clip_swinL_v2", "clip_swinMoE_B", "clip_swinMLP_B",
+    "clip_swinB_v2", "clip_swinL", "clip_swinL_v2", "clip_swinMLP_B",
     "clip_swin_yaml", "clip_fdt_swinB_v2", "clip_vitb32_sp", "clip_fdt_sp_vitb32",
     "declip_fdt_vitb32", "defilip_fdt_vitb32",
 )
@@ -105,6 +107,14 @@ def clip_vitb32_auxilary(device=None, **kw) -> CLIP:
     return _clip(vit_b32, kw, device)
 
 
+def clip_swinMoE_B(device=None, **kw) -> CLIP:
+    """CLIP with the Swin-MoE-B image tower (``models/swin.py``): its
+    ``image_encode`` block overrides the factory's fields (``num_experts``,
+    ``input_resolution``, ``window_size``, ``moe_blocks``, ...) as the JAX
+    factory's does; the forward's output carries ``moe_aux``."""
+    return _clip(swin_moe_b, kw, device)
+
+
 def _clip_fdt(vision_factory, kw, device) -> CLIPFDT:
     img_kw, txt_kw, dtype = _common(kw)
     fdt_kw = dict(kw.get("fdt", {}))
@@ -126,7 +136,8 @@ def clip_fdt_vitb16(device=None, **kw) -> CLIPFDT:
 
 _REGISTRY = {"clip_vitb32": clip_vitb32, "clip_vitb16": clip_vitb16,
              "clip_vitb32_auxilary": clip_vitb32_auxilary,
-             "clip_fdt_vitb32": clip_fdt_vitb32, "clip_fdt_vitb16": clip_fdt_vitb16}
+             "clip_fdt_vitb32": clip_fdt_vitb32, "clip_fdt_vitb16": clip_fdt_vitb16,
+             "clip_swinMoE_B": clip_swinMoE_B}
 
 
 def model_entry(config, device=None, generator: Optional[torch.Generator] = None):

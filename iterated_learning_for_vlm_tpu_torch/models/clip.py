@@ -1,8 +1,8 @@
 """CLIP dual-encoder model, and the constants and helpers CLIP-FDT shares.
 
-Counterpart of ``iterated_learning_for_vlm_tpu/models/clip.py`` (ViT towers):
-the logit-scale init and clamp, ``l2_normalize``, the vision-tower dispatch
-and the baseline :class:`CLIP`.
+Counterpart of ``iterated_learning_for_vlm_tpu/models/clip.py`` (ViT and
+Swin towers): the logit-scale init and clamp, ``l2_normalize``, the
+vision-tower dispatch and the baseline :class:`CLIP`.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import math
 import torch
 from torch import nn
 
+from .swin import SwinConfig, SwinTransformer
 from .text import TextConfig, TextTransformer
 from .vit import VisionConfig, VisionTransformer
 
@@ -23,9 +24,11 @@ def l2_normalize(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
 
 
 def build_vision_tower(cfg, dtype, device=None):
+    if isinstance(cfg, SwinConfig):
+        return SwinTransformer(cfg, dtype=dtype, device=device)
     if not isinstance(cfg, VisionConfig):
         raise NotImplementedError(f"vision tower {type(cfg).__name__} is not ported to "
-                                  "the PyTorch package yet (ViT only)")
+                                  "the PyTorch package yet (ViT and Swin v1 only)")
     return VisionTransformer(cfg, dtype=dtype, device=device)
 
 
@@ -38,8 +41,9 @@ class CLIP(nn.Module):
     ``encode_text`` (the text tower) and ``logit_scale``. The text tower's
     name takes the place of the JAX method ``encode_text(tokens, pad_mask)``:
     text embeddings are ``model.encode_text(tokens, pad_mask)["embed"]``, and
-    image embeddings ``model.encode_image(images)``. ResNet and Swin towers
-    (and their ``moe_aux``) are not ported."""
+    image embeddings ``model.encode_image(images)``. A Swin-MoE tower's
+    ``moe_aux`` is passed on in the forward's output; ResNet towers and the
+    Swin v2 and Swin-MLP blocks are not ported."""
 
     def __init__(self, vision_cfg: VisionConfig, text_cfg: TextConfig, dtype=torch.float32,
                  device=None):
@@ -70,10 +74,13 @@ class CLIP(nn.Module):
         return self.encode_text(tokens, pad_mask)["words_proj"], pad_mask
 
     def forward(self, images, tokens, pad_mask=None):
-        image = self.encode_image(images)
+        vis = self.visual(images)
         text = self.encode_text(tokens, pad_mask)["embed"]
-        return {
-            "image_embed": l2_normalize(image.float()),
+        out = {
+            "image_embed": l2_normalize(vis["embed"].float()),
             "text_embed": l2_normalize(text.float(), eps=1e-10),
             "logit_scale": torch.clamp_max(self.logit_scale[0].exp(), LOGIT_SCALE_MAX),
         }
+        if "moe_aux" in vis:  # Swin-MoE's load-balancing term, for the loss
+            out["moe_aux"] = vis["moe_aux"]
+        return out

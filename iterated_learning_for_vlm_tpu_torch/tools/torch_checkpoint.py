@@ -13,7 +13,10 @@ params through it unchanged, and this module goes the other way:
 
 The table covers the CLIP tree (``visual``, ``text``, ``logit_scale``) and
 the CLIP-FDT tree (the same, plus ``space_dict``, the query heads and
-``logit_scale_sd``).
+``logit_scale_sd``), and a Swin v1 / Swin-MoE ``visual`` tree (flax
+``stage{s}_block{b}`` / ``merge{s}`` modules -> the port's Microsoft-Swin names
+``layers.{s}.blocks.{b}`` / ``layers.{s}.downsample``; the experts' stacked
+``w1 [E, d, h]``, ``b1``, ``w2``, ``b2`` as they are).
 
 Any tree with the params' structure crosses the same way: gradients, and the
 AdamW ``mu`` / ``nu`` moments. The per-leaf AdamW ``count`` is a scalar per
@@ -33,6 +36,7 @@ the reference one, which ``eval/model_loader.py`` loads.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -87,6 +91,70 @@ for _root, _side in (("img_query", "img_query_model"), ("txt_query", "txt_query_
     })
 
 
+# Swin: flax path below visual/stage{s}_block{b}/ -> torch suffix within a block
+_SWIN_BLOCK_MAP = {
+    ("attn", "qkv", "kernel"): "attn.qkv.weight",
+    ("attn", "qkv", "bias"): "attn.qkv.bias",
+    ("attn", "proj", "kernel"): "attn.proj.weight",
+    ("attn", "proj", "bias"): "attn.proj.bias",
+    ("attn", "relative_position_bias_table"): "attn.relative_position_bias_table",
+    ("mlp_fc1", "kernel"): "mlp.fc1.weight",
+    ("mlp_fc1", "bias"): "mlp.fc1.bias",
+    ("mlp_fc2", "kernel"): "mlp.fc2.weight",
+    ("mlp_fc2", "bias"): "mlp.fc2.bias",
+    ("moe_mlp", "gate", "kernel"): "mlp.gate.weight",
+    ("moe_mlp", "w1"): "mlp.w1",
+    ("moe_mlp", "b1"): "mlp.b1",
+    ("moe_mlp", "w2"): "mlp.w2",
+    ("moe_mlp", "b2"): "mlp.b2",
+}
+for _ln in ("norm1", "norm2"):
+    _SWIN_BLOCK_MAP[(_ln, "norm", "scale")] = f"{_ln}.weight"
+    _SWIN_BLOCK_MAP[(_ln, "norm", "bias")] = f"{_ln}.bias"
+_SWIN_MERGE_MAP = {("norm", "norm", "scale"): "downsample.norm.weight",
+                   ("norm", "norm", "bias"): "downsample.norm.bias",
+                   ("reduction", "kernel"): "downsample.reduction.weight"}
+_TOP_MAP.update({
+    ("visual", "patch_embed", "kernel"): "visual.patch_embed.proj.weight",
+    ("visual", "patch_embed", "bias"): "visual.patch_embed.proj.bias",
+    ("visual", "patch_norm", "norm", "scale"): "visual.patch_embed.norm.weight",
+    ("visual", "patch_norm", "norm", "bias"): "visual.patch_embed.norm.bias",
+    ("visual", "norm", "norm", "scale"): "visual.norm.weight",
+    ("visual", "norm", "norm", "bias"): "visual.norm.bias",
+})
+_SWIN_MODULE = re.compile(r"^(?:stage(\d+)_block(\d+)|merge(\d+))$")
+_SWIN_NAME = re.compile(r"^visual\.layers\.(\d+)\.(?:blocks\.(\d+)\.(.+)|(downsample\..+))$")
+
+
+def _swin_torch_name(path: tuple) -> Optional[str]:
+    """The port name of a flax Swin block or merge leaf, else None."""
+    if len(path) < 3 or path[0] != "visual":
+        return None
+    m = _SWIN_MODULE.match(path[1])
+    if m is None:
+        return None
+    if m.group(1) is not None:
+        suffix = _SWIN_BLOCK_MAP.get(path[2:])
+        return None if suffix is None else f"visual.layers.{m.group(1)}.blocks.{m.group(2)}.{suffix}"
+    suffix = _SWIN_MERGE_MAP.get(path[2:])
+    return None if suffix is None else f"visual.layers.{m.group(3)}.{suffix}"
+
+
+_SWIN_BLOCK_INV = {name: path for path, name in _SWIN_BLOCK_MAP.items()}
+_SWIN_MERGE_INV = {name: path for path, name in _SWIN_MERGE_MAP.items()}
+
+
+def _swin_jax_path(name: str) -> Optional[Tuple[str, ...]]:
+    m = _SWIN_NAME.match(name)
+    if m is None:
+        return None
+    if m.group(2) is not None:
+        suffix = _SWIN_BLOCK_INV.get(m.group(3))
+        return None if suffix is None else ("visual", f"stage{m.group(1)}_block{m.group(2)}") + suffix
+    suffix = _SWIN_MERGE_INV.get(m.group(4))
+    return None if suffix is None else ("visual", f"merge{m.group(1)}") + suffix
+
+
 _TOP_INV = {name: path for path, name in _TOP_MAP.items()}
 _BLOCK_INV = {name: path for path, name in _BLOCK_MAP.items()}
 _TOWERS_INV = {name: root for root, name in _TOWERS.items()}
@@ -103,6 +171,9 @@ def jax_path(name: str) -> Tuple[str, ...]:
         suffix = _BLOCK_INV.get(".".join(parts[4:]))
         if suffix is not None:
             return (_TOWERS_INV[parts[0]], "transformer", "resblocks") + suffix
+    swin = _swin_jax_path(name)
+    if swin is not None:
+        return swin
     raise KeyError(f"no JAX path for port parameter {name}")
 
 
@@ -153,6 +224,8 @@ def state_dict_from_jax_params(params: Mapping[str, Any],
                     _to_torch_layout(path, layer))
         elif path in _TOP_MAP:
             out[_TOP_MAP[path]] = _to_torch_layout(path, value)
+        elif _swin_torch_name(path) is not None:
+            out[_swin_torch_name(path)] = _to_torch_layout(path, value)
         else:
             raise KeyError(f"no torch name for JAX param {'/'.join(path)}")
     return {k: np.array(v, dtype=np.float32, order="C") for k, v in out.items()}

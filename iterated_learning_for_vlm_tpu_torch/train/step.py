@@ -2,7 +2,8 @@
 
 Counterpart of ``iterated_learning_for_vlm_tpu/train/step.py``. One step is,
 in the JAX step's order: forward (CLIP-FDT with its temperature, or the
-baseline CLIP), global-batch InfoNCE, backward, gradient clipping, the
+baseline CLIP), global-batch InfoNCE (plus ``0.01 * moe_aux`` when the
+forward returns a Swin-MoE tower's load-balancing term), backward, gradient clipping, the
 logit-scale clamp before the update, ``lr = schedule(step + 1)``, masked
 AdamW, the clamp after, the ``logit_scale_param`` delta / EMA / ``constant``
 clamps, the codebook hold (CLIP-FDT only), ``step + 1``. Every IL
@@ -40,6 +41,8 @@ from ..utils.profiling import span
 from .loss import clip_info_nce, clip_info_nce_sharded
 from .optim import adamw_update, clamp_logit_scale, clip_grads
 from .train_state import TrainState
+
+MOE_AUX_WEIGHT = 0.01  # Swin-MoE's load-balancing weight (JAX train/step.py)
 
 
 def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
@@ -83,10 +86,15 @@ def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
                 loss, metrics = clip_info_nce(out["image_embed"], out["text_embed"],
                                               out["logit_scale"],
                                               reference_scale=reference_scale)
+            aux = out.get("moe_aux")
+            if aux is not None:
+                loss = loss + MOE_AUX_WEIGHT * aux
         with span("train.backward"):
             loss.backward()  # under DDP this rank's loss; DDP averages the gradients
         if data_parallel:
             loss = metrics.pop("loss")
+            if aux is not None:  # this rank's own term beside the ranks' mean InfoNCE
+                loss = loss + MOE_AUX_WEIGHT * aux.detach()
         with span("train.update"):
             grads = {n: p.grad for n, p in params.items()}
             clip_grads(grads, grad_clip_type, grad_clip_value)

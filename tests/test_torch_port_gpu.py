@@ -1424,3 +1424,127 @@ def test_text_graph_result_outlives_the_next_call(dev):
     torch.cuda.synchronize()
     assert enc.text_graph_replays == 2
     assert torch.equal(first, kept) and not torch.equal(first, second)
+
+
+# -- K4: Swin window attention ---------------------------------------------------------------
+# K4-fwd and K4-bwd round at the same places as their plain versions (p and ds
+# to bf16 before the products, fp32 sums taken in another order, one rounding
+# of each output): as K2's.
+WIN_ATOL, WIN_RTOL = 2e-2, 1e-2
+# The bias gradient sums W fp32 ds values per entry in another order (blocks'
+# strided window sets, then the partials): relative to the gradient's norm,
+# fp32 noise grows as sqrt(W) ulps.
+WIN_DBIAS_RTOL = 1e-4
+
+# (images, ws, heads, shifted): N = 144 at stages 0-2 (masked at 0 and 1),
+# N = 36 at stage 3, head width 32; and N = 16, 100 for the padding edges
+K4_SHAPES = [(2, 12, 4, True), (2, 12, 4, False), (3, 12, 16, False), (4, 6, 32, False),
+             (2, 6, 8, True), (2, 4, 2, True), (2, 10, 4, True)]
+
+
+def _window_inputs(dev, images, ws, heads, shifted, seed):
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    hw = 4 * ws if shifted else 2 * ws
+    nw = (hw // ws) ** 2
+    n, c = ws * ws, 32 * heads
+    g = _gen(seed)
+    qkv = torch.randn(images * nw, n, 3 * c, generator=g, device=dev).to(torch.bfloat16)
+    table = 0.5 * torch.randn((2 * ws - 1) ** 2, heads, generator=g, device=dev)
+    index = torch.from_numpy(wa.relative_position_index(ws)).to(dev)
+    rel = wa.RelativePositionBias.apply(table, index, ws)
+    mask = torch.from_numpy(wa.shift_mask(hw, ws, ws // 2)).to(dev) if shifted else None
+    return qkv, rel, mask, wa.combined_bias(rel, mask), g
+
+
+@pytest.mark.parametrize("images,ws,heads,shifted", K4_SHAPES)
+def test_window_attention_kernel_matches_plain(dev, images, ws, heads, shifted):
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    qkv, _, _, bias, _ = _window_inputs(dev, images, ws, heads, shifted, ws * 10 + heads)
+    before = wa.window_attention_fwd.launches
+    got = wa.window_attention_fwd(qkv, bias, heads)
+    torch.cuda.synchronize()
+    assert wa.window_attention_fwd.launches == before + 1
+    ref = wa.window_attention_reference(qkv, bias, heads)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs()
+    assert torch.all(err <= WIN_ATOL + WIN_RTOL * ref.float().abs()), err.max().item()
+
+
+@pytest.mark.parametrize("images,ws,heads,shifted", K4_SHAPES)
+def test_window_attention_bwd_kernel_matches_plain(dev, images, ws, heads, shifted):
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    qkv, _, _, bias, g = _window_inputs(dev, images, ws, heads, shifted, ws * 10 + heads + 1)
+    dout = torch.randn(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3, generator=g,
+                       device=dev).to(torch.bfloat16)
+    before = wa.window_attention_bwd.launches
+    dqkv, dbias = wa.window_attention_bwd(qkv, bias, heads, dout)
+    torch.cuda.synchronize()
+    assert wa.window_attention_bwd.launches == before + 1
+    ref_dqkv, ref_dbias = wa.window_attention_bwd_reference(qkv, bias, heads, dout)
+    err = (dqkv.float() - ref_dqkv.float()).abs()
+    assert torch.all(err <= WIN_ATOL + WIN_RTOL * ref_dqkv.float().abs()), err.max().item()
+    assert dbias.dtype == torch.float32 and dbias.shape == ref_dbias.shape
+    gap = (dbias - ref_dbias).norm() / ref_dbias.norm()
+    assert gap <= WIN_DBIAS_RTOL, gap.item()
+    # no float atomics: a second call gives the same bits
+    again = wa.window_attention_bwd(qkv, bias, heads, dout)
+    assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
+
+
+def test_window_attention_function_and_table_grad(dev):
+    """Autograd through K4 on the card: dqkv and the bias table's gradient
+    against autograd through the plain forward (fp32 table, bf16 qkv)."""
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    ws, heads = 12, 4
+    qkv, _, mask, _, g = _window_inputs(dev, 2, ws, heads, True, 77)
+    table = (0.5 * torch.randn((2 * ws - 1) ** 2, heads, generator=g, device=dev))
+    index = torch.from_numpy(wa.relative_position_index(ws)).to(dev)
+    dout = torch.randn(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3, generator=g,
+                       device=dev).to(torch.bfloat16)
+    grads = []
+    for kernel in (True, False):
+        x = qkv.clone().requires_grad_()
+        t = table.clone().requires_grad_()
+        rel = wa.RelativePositionBias.apply(t, index, ws)
+        if kernel:
+            out = wa.WindowAttentionFn.apply(x, rel, mask, heads)
+        else:
+            out = wa.window_attention_reference(x, wa.combined_bias(rel, mask), heads)
+        out.backward(dout)
+        grads.append((x.grad.float(), t.grad))
+    (dx, dt), (rx, rt) = grads
+    assert torch.all((dx - rx).abs() <= WIN_ATOL + WIN_RTOL * rx.abs())
+    # autograd's plain backward rounds at other places (no ds rounding): 1%
+    assert (dt - rt).norm() / rt.norm() <= 1e-2
+
+
+def test_swin_tower_takes_k4_on_the_card(dev):
+    """A bf16 two-stage Swin-MoE tower on the card: every window attention
+    call launches K4 forward and backward, and the MoE counters add up; a
+    float32 tower raises in K4 rather than take a plain route."""
+    from iterated_learning_for_vlm_tpu_torch.models import swin
+
+    cfg = swin.SwinConfig(input_resolution=96, window_size=12, embed_dim=64, depths=(2, 2),
+                          num_heads=(2, 4), num_experts=4, moe_blocks=((1,), (1,)))
+    tower = layers_model.init_module_tree(
+        swin.SwinTransformer(cfg, dtype=torch.bfloat16, device=dev), _gen(3))
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    fwd, bwd = wa.window_attention_fwd.launches, wa.window_attention_bwd.launches
+    x = torch.randn(8, 96, 96, 3, generator=_gen(4), device=dev)
+    out = tower(x)
+    (out["embed"].float().square().sum() + out["moe_aux"]).backward()
+    torch.cuda.synchronize()
+    assert wa.window_attention_fwd.launches - fwd == 4
+    assert wa.window_attention_bwd.launches - bwd == 4
+    routed, kept, slots, largest = (int(v) for v in sum(m.counters for m in tower.moe_layers()))
+    assert routed == 8 * (576 + 144) and kept <= min(routed, slots) and largest > 0
+    assert tower.layers[0].blocks[0].attn.relative_position_bias_table.grad.abs().sum() > 0
+    fp32 = layers_model.init_module_tree(
+        swin.SwinTransformer(cfg, dtype=torch.float32, device=dev), _gen(3))
+    with pytest.raises(ValueError, match="bfloat16"):
+        fp32(x)
