@@ -86,12 +86,15 @@ Then the CLIP models are freed and the port's own training loop runs:
    ``grad_clip`` / ``optimizer`` / ``lr_scheduler`` blocks with ``max_iter``
    12; synthetic data at batch 256 and ctx 77; the temperature halving every
    4 steps; IL reset every 4 steps, smooth 2, 3 resets; a save at 9 and at
-   12). Run A trains 12 steps (counters reset just before ``train()``, read
-   just after: 12 x the train step's launches, 0 plain routes); the reset
-   after step 8 redraws exactly the reference text leaves, steps 9-10 keep the
-   codebook at its snapshot and the vision tower unmoved, nothing is held or
-   frozen after step 12, and ``metrics.jsonl`` and ``log.txt`` carry the
-   records. Run B resumes from ``ckpt_9`` in a fresh Solver and must give
+   12). Run A trains 12 steps under a device-only ``torch.profiler``
+   (counters reset just before ``train()``, read just after: 12 x the train
+   step's launches in the wrappers' counters and as kernel records in the
+   trace, which a replayed step's counters cannot stand in for; 0 plain
+   routes; the step's calls eager, captured and replayed, some replayed);
+   the reset after step 8 redraws exactly the reference text leaves, steps
+   9-10 keep the codebook at its snapshot and the vision tower unmoved,
+   nothing is held or frozen after step 12, and ``metrics.jsonl`` and
+   ``log.txt`` carry the records. Run B resumes from ``ckpt_9`` in a fresh Solver and must give
    run A's losses of steps 10-12 and its final parameters bit for bit. It
    prints the per-step host times (not a throughput figure: the synthetic
    images are drawn on the host), the checkpoint's size, its save and
@@ -106,9 +109,11 @@ Then phase 11's models are freed and the data pipeline runs:
    8 of whose captions are long enough for the ctx-77 bucket; MOCOV2_single,
    context buckets [32, 77], the uint8 wire; no IL; saves at 5 and 8). Run A
    trains 8 steps through the native augment and ``prefetch_to_device``
-   (counters reset just before ``train()``: 8 x the train step's launches,
-   0 plain routes, both contexts taken, no sample on the PIL tier, the first
-   batch normalized on the card within 1 fp32 ulp of the host float wire);
+   under a device-only ``torch.profiler`` (counters reset just before
+   ``train()``: 8 x the train step's launches, counted and in the trace,
+   some steps replayed, 0 plain routes, both contexts taken, no sample on
+   the PIL tier, the first batch normalized on the card within 1 fp32 ulp
+   of the host float wire);
    ``encode_images`` of 256 PIL images from the shards (ONECROP) with the
    bf16 serving cast must equal the uncast encoder's bit for bit (12 K2-fwd,
    1 K1-fwd); run B resumes from ``ckpt_5`` and must repeat run A's steps 6-8
@@ -866,6 +871,51 @@ def check_routes(label: str) -> None:
     check(not any(plain.values()), f"{label}: a kernel knob took the plain route {plain}")
 
 
+# the device kernel each counted wrapper launches once a call, by a fragment of
+# its name in a profiler trace
+TRACED_KERNELS = {"tiny_attention_fwd": "tiny_attention_fwd_kernel",
+                  "tiny_attention_bwd": "tiny_attention_bwd_kernel",
+                  "codebook_pool_fwd": "codebook_pool_fwd_kernel",
+                  "codebook_pool_bwd_dq": "codebook_pool_dq_gather_kernel",
+                  "codebook_pool_bwd_dsd": "codebook_pool_bwd_dsd_kernel",
+                  "flash_attention_fwd": "flash_attention_fwd_kernel",
+                  "flash_attention_bwd": "flash_attention_bwd_dq_kernel"}
+
+
+TRACE_PAD = 2000  # small kernels run at a trace's end, past the counted ones
+
+
+def traced_launches(fn):
+    """``fn()`` under a device-only ``torch.profiler``: (its result, the
+    kernel records of each counted wrapper's kernel in the trace). A train
+    step replayed as a CUDA graph adds the wrappers' counts that its capture
+    made; these records are what the card ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync()
+        # a trace can lack the records of the last kernels before its stop,
+        # though the device has run them (PERF.md §7): let those be padding
+        pad = torch.zeros(1, device="cuda")
+        for _ in range(TRACE_PAD):
+            pad.add_(1)
+        sync()
+    with tempfile.TemporaryDirectory(prefix="ilvlm_trace_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            names = [e["name"] for e in json.load(f).get("traceEvents", [])
+                     if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    return out, {name: sum(frag in n for n in names) for name, frag in TRACED_KERNELS.items()}
+
+
+def graph_counts(step) -> dict:
+    """How the train step ran its calls: eagerly, captured, replayed."""
+    return {k: getattr(step, f"graph_{k}") for k in ("eager", "captures", "replays")}
+
+
 def make_trainer(model, is_fdt: bool = True):
     """The bench trainer: masked AdamW at the CC3M config's lr schedule, weight
     decay and logit-scale clamp, on a fresh state (CLIP: no codebook, and the
@@ -1233,18 +1283,22 @@ def solver_phase(dev, counted, report):
                               exp_name="smoke", device=dev)
         sync()
         row["build_s"] = time.perf_counter() - t0
+        step_a = a.train_step
         rec_a = instrument(a, checks=True)
         sync()
         reset_counters(*counted.values())
         reset_routes()
         t0 = time.perf_counter()
-        a.train()
-        sync()
+        _, launches = traced_launches(a.train)
         row["train_a_s"] = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counted.items()}
+        counters = {name: fn.launches for name, fn in counted.items()}
+        row["graph"] = graph_counts(step_a)
         check_routes("solver")
         want = {name: SOLVER_STEPS * n for name, n in TRAIN_LAUNCHES.items()}
-        check(launches == want, f"solver launches {launches}, expected {want}")
+        check(launches == want, f"solver launches in the trace {launches}, expected {want}")
+        check(counters == want, f"solver launch counters {counters}, expected {want}")
+        check(sum(row["graph"].values()) == SOLVER_STEPS and row["graph"]["replays"],
+              f"solver: the train step ran {row['graph']}")
         losses_a = {s: v.item() for s, v in rec_a["loss"].items()}
         check(sorted(losses_a) == list(range(1, SOLVER_STEPS + 1))
               and all(np.isfinite(v) for v in losses_a.values()),
@@ -1309,7 +1363,9 @@ def solver_phase(dev, counted, report):
     solver_mod.save_checkpoint = save_checkpoint
     report["solver"] = row | {"launches": launches}
     log(f"solver: {SOLVER_STEPS} steps of Solver.train() at bs{BATCH} ctx77 in "
-        f"{row['train_a_s']:.2f} s (build {row['build_s']:.2f} s); launches {launches}; "
+        f"{row['train_a_s']:.2f} s under a device profiler (build {row['build_s']:.2f} s); "
+        f"the step ran {row['graph']}; kernels in the trace {launches}, the wrappers' "
+        "counters the same; "
         f"losses {[round(losses_a[s], 5) for s in sorted(losses_a)]}; the reset after step 8 "
         "redrew the reference text leaves and zeroed their moments, steps 9-10 kept the "
         "codebook at its snapshot and the vision tower unmoved, nothing held or frozen after "
@@ -1492,13 +1548,16 @@ def pipeline_phase(dev, counted, report, tmp):
     reset_routes()
     tiers.update(native=0, pil=0)
     t0 = time.perf_counter()
-    a.train()
-    sync()
+    _, launches = traced_launches(a.train)
     row["train_a_s"] = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counted.items()}
+    counters = {name: fn.launches for name, fn in counted.items()}
+    row["graph"] = graph_counts(step_fn)
     check_routes("pipeline")
     want = {name: PIPE_STEPS * n for name, n in TRAIN_LAUNCHES.items()}
-    check(launches == want, f"pipeline launches {launches}, expected {want}")
+    check(launches == want, f"pipeline launches in the trace {launches}, expected {want}")
+    check(counters == want, f"pipeline launch counters {counters}, expected {want}")
+    check(sum(row["graph"].values()) == PIPE_STEPS and row["graph"]["replays"],
+          f"pipeline: the train step ran {row['graph']}")
     losses_a = {s: v.item() for s, v in rec["loss"].items()}
     check(sorted(losses_a) == list(range(1, PIPE_STEPS + 1))
           and all(np.isfinite(v) for v in losses_a.values()),
@@ -1522,7 +1581,9 @@ def pipeline_phase(dev, counted, report, tmp):
     log(f"pipeline: {PIPE_STEPS} steps of Solver.train() at bs{BATCH} from "
         + (f"{PIPE_SHARDS} JPEG shards x {PIPE_PER_SHARD} (written in "
            f"{row['write_shards_s']:.1f} s), MOCOV2_single" if pillow else "synthetic data")
-        + f", in {row['train_a_s']:.2f} s; launches {launches}; losses "
+        + f", in {row['train_a_s']:.2f} s under a device profiler; the step ran "
+        f"{row['graph']}; kernels in the trace {launches}, the wrappers' counters the same; "
+        "losses "
         f"{[round(losses_a[s], 5) for s in sorted(losses_a)]}; contexts {ctxs} "
         f"(ctx 32: {ctxs.count(32)}, ctx 77: {ctxs.count(77)}); augment tiers {tiers}")
     log(f"pipeline normalize: the first batch normalized on the device against the host "
@@ -2149,9 +2210,11 @@ def b16_phase(dev, counted, report, smi, total):
             event.record()
         return [x.item() for x in losses]
 
-    losses, launches, _ = counted_run(
-        counted, "B/16 train steps", steps,
-        {k: (B16_TRAIN_STEPS - 1) * v for k, v in B16_TRAIN_LAUNCHES.items()})
+    want = {k: (B16_TRAIN_STEPS - 1) * v for k, v in B16_TRAIN_LAUNCHES.items()}
+    (losses, _, _), launches = traced_launches(
+        lambda: counted_run(counted, "B/16 train steps", steps, want))
+    check(launches == want, f"B/16 train steps: kernels in the trace {launches}, "
+                            f"expected {want}")
     add_launches(total, launches)
     check(all(np.isfinite(losses)), f"B/16 train losses {losses} are not finite")
     step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]

@@ -21,8 +21,10 @@ Semantics kept from JAX, where ``torch.optim.AdamW`` differs:
 - ``clip_grads("norm")`` sums over every gradient, frozen parameters' included.
 
 Updates are in place under ``torch.no_grad``; counts live on the host (they
-are known without reading the device). Moments are fp32; bf16 moments with
-stochastic rounding, AdamW_SGD and LARS are not ported.
+are known without reading the device). The host half of a step
+(:func:`adamw_scalars`) turns them into the bias corrections, which the
+device half (:func:`adamw_update`) reads from a tensor. Moments are fp32;
+bf16 moments with stochastic rounding, AdamW_SGD and LARS are not ported.
 """
 from __future__ import annotations
 
@@ -101,40 +103,82 @@ def adamw_init(params: Params, moment_dtype=None) -> Dict[str, Dict]:
             "count": {n: 0.0 for n in params}}
 
 
+def adamw_scalars(state: Dict[str, Dict], names, trainable: Mapping[str, bool], lr: float,
+                  b1: float = 0.9, b2: float = 0.98) -> Tuple[Tuple[Tuple[str, ...], ...], list]:
+    """The host half of one AdamW step: ``count += 1`` for each trainable
+    parameter (``names`` in order), then the trainable names grouped by
+    their count, in order of first appearance (``classes``), and the step's
+    scalars as host floats: ``lr``, then each class's ``1 - b1^count`` and
+    ``1 - b2^count``. A device copy rounds them to float32, as a Python
+    scalar is rounded where a kernel reads it."""
+    by_count: Dict[float, list] = {}
+    for n in names:
+        if trainable[n]:
+            state["count"][n] += 1.0
+            by_count.setdefault(state["count"][n], []).append(n)
+    values = [lr]
+    for c in by_count:
+        values += [1 - b1 ** c, 1 - b2 ** c]
+    return tuple(tuple(v) for v in by_count.values()), values
+
+
 @torch.no_grad()
 def adamw_update(grads: Mapping[str, Optional[torch.Tensor]], state: Dict[str, Dict],
-                 params: Params, *, lr: float, wd_tree: Mapping[str, float],
+                 params: Params, *, lr, wd_tree: Mapping[str, float],
                  trainable: Mapping[str, bool], b1: float = 0.9, b2: float = 0.98,
-                 eps: float = 1e-8) -> None:
+                 eps: float = 1e-8, classes=None,
+                 zeros: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """One AdamW step on the trainable parameters, in place:
 
         mu = b1 mu + (1 - b1) g;  nu = b2 nu + (1 - b2) g^2;  count += 1
         p -= lr (mu / (1 - b1^count) / (sqrt(nu / (1 - b2^count)) + eps) + wd p)
 
-    A missing gradient counts as zero; frozen parameters are left alone. The
-    arithmetic runs as multi-tensor (``torch._foreach_*``) kernels."""
-    names = [n for n in params if trainable[n]]
+    Two calls, and nothing else: ``lr`` a float and no ``classes``, and
+    this call runs :func:`adamw_scalars` itself; or ``lr`` the float32
+    tensor on the parameters' device that the host half's values were
+    copied into, with that call's ``classes`` (the counts have advanced
+    already). Either way the device reads ``lr`` and the bias corrections
+    from a tensor, so a CUDA graph of the step can replay it. A missing
+    gradient counts as zero (read from ``zeros``, a cache of zero tensors by
+    name, when given); frozen parameters are left alone. The arithmetic runs
+    as multi-tensor (``torch._foreach_*``) kernels."""
+    if isinstance(lr, torch.Tensor) != (classes is not None):
+        raise ValueError("adamw_update takes a float lr without classes, or a tensor lr "
+                         "with the classes of the adamw_scalars call that made it")
+    if classes is None:
+        classes, values = adamw_scalars(state, params, trainable, lr, b1, b2)
+        lr = torch.tensor(values, dtype=torch.float32).to(next(iter(params.values())).device,
+                                                          non_blocking=True)
+    names = [n for cls in classes for n in cls]
     if not names:
         return
     ps = [params[n] for n in names]
-    gs = [torch.zeros_like(params[n]) if grads.get(n) is None else grads[n].float()
-          for n in names]
+    zeros = {} if zeros is None else zeros
+    gs = []
+    for n in names:
+        g = grads.get(n)
+        if g is None:
+            if n not in zeros:
+                zeros[n] = torch.zeros_like(params[n])
+            g = zeros[n]
+        gs.append(g.float())
     mus = [state["mu"][n] for n in names]
     nus = [state["nu"][n] for n in names]
-    for n in names:
-        state["count"][n] += 1.0
-    counts = [state["count"][n] for n in names]
     torch._foreach_mul_(mus, b1)
     torch._foreach_add_(mus, gs, alpha=1 - b1)
     torch._foreach_mul_(nus, b2)
     torch._foreach_addcmul_(nus, gs, gs, value=1 - b2)
-    denom = torch._foreach_div(nus, [1 - b2 ** c for c in counts])
+    denom, step, at = [], [], 0
+    for k, cls in enumerate(classes):  # per class: one bias correction each
+        part = slice(at, at + len(cls))
+        at += len(cls)
+        denom += torch._foreach_div(nus[part], lr[2 + 2 * k])
+        step += torch._foreach_div(mus[part], lr[1 + 2 * k])
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, eps)
-    step = torch._foreach_div(mus, [1 - b1 ** c for c in counts])
     torch._foreach_div_(step, denom)
     torch._foreach_add_(step, torch._foreach_mul(ps, [wd_tree[n] for n in names]))
-    torch._foreach_mul_(step, lr)
+    torch._foreach_mul_(step, lr[0])
     torch._foreach_sub_(ps, step)
 
 

@@ -10,6 +10,8 @@ does not have; this file imports no JAX.) Inputs are bf16, the kernels'
 working type. ``chip_smoke.py`` repeats these checks at the full serving
 shapes.
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -1548,3 +1550,217 @@ def test_swin_tower_takes_k4_on_the_card(dev):
         swin.SwinTransformer(cfg, dtype=torch.float32, device=dev), _gen(3))
     with pytest.raises(ValueError, match="bfloat16"):
         fp32(x)
+
+
+# -- the train step as a CUDA graph (train/step.py) --------------------------------------
+def _step_model(dev, kind):
+    """A small bf16 model whose step runs hand-written kernels: the CLIP-FDT of
+    ``_small_cfg`` (K2 and K1), a CLIP of its towers (K2), or a CLIP Swin-MoE
+    with a 96-px two-stage tower of head width 32 and 4 experts (K4) and the
+    same text tower (K2)."""
+    cfg = _small_cfg(True)
+    towers = {k: v for k, v in cfg["kwargs"].items() if k != "fdt"}
+    if kind == "clip":
+        cfg = {"type": "clip_vitb32", "kwargs": towers}
+    elif kind == "swinmoe":
+        towers["image_encode"] = {"input_resolution": 96, "window_size": 12, "depths": [2, 2],
+                                  "num_heads": [4, 8], "num_experts": 4,
+                                  "moe_blocks": [[1], [1]], "embed_dim": 64}
+        cfg = {"type": "clip_swinMoE_B", "kwargs": towers}
+    return model_entry(cfg, device=dev, generator=_gen(5))
+
+
+def _step_pair(dev, kind):
+    """Two copies of one model, each with a fresh TrainState."""
+    from iterated_learning_for_vlm_tpu_torch.train import optim
+    from iterated_learning_for_vlm_tpu_torch.train.train_state import TrainState
+
+    a, b = _step_model(dev, kind), _step_model(dev, kind)
+    b.load_state_dict(a.state_dict())
+    states = []
+    for m in (a, b):
+        params = dict(m.named_parameters())
+        states.append(TrainState.create(params, optim.adamw_init(params),
+                                        optim.trainable_mask_tree(params),
+                                        params.get("space_dict")))
+    return (a, states[0]), (b, states[1])
+
+
+def _step_fn(model, kind):
+    from iterated_learning_for_vlm_tpu_torch.train import optim
+    from iterated_learning_for_vlm_tpu_torch.train.step import make_train_step
+
+    params = dict(model.named_parameters())
+    return make_train_step(model, lambda s: 1e-3 * s / (s + 2.0),
+                           optim.build_wd_tree(params, 0.1, {}), is_fdt=kind == "fdt",
+                           grad_clip_type="logit_scale_param_value", grad_clip_value=3.0,
+                           grad_clip_max_value=6.0)
+
+
+def _step_batches(dev, kind, n):
+    res = 96 if kind == "swinmoe" else 64
+    g = _gen(7)
+    out = []
+    for _ in range(n):
+        tokens = torch.randint(1, 298, (8, 20), generator=g, device=dev)
+        lengths = torch.randint(4, 21, (8, 1), generator=g, device=dev)
+        pos = torch.arange(20, device=dev)
+        tokens = torch.where(pos == lengths - 1, 299, torch.where(pos < lengths, tokens, 0))
+        pad = torch.where(pos < lengths, 0.0, float("-inf")).float()
+        out.append({"image": torch.randn(8, res, res, 3, generator=g, device=dev),
+                    "tokens": tokens, "pad_mask": pad})
+    return out
+
+
+def _assert_same_state(a, state_a, b, state_b):
+    for (n, p), q in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(p, q), n
+        for k in ("mu", "nu"):
+            assert torch.equal(state_a.opt_state[k][n], state_b.opt_state[k][n]), (k, n)
+    assert state_a.opt_state["count"] == state_b.opt_state["count"]
+    assert (state_a.step, state_a.hold_codebook) == (state_b.step, state_b.hold_codebook)
+
+
+@pytest.mark.parametrize("kind", ["fdt", "clip", "swinmoe"])
+def test_step_graph_replay_is_the_eager_step(dev, kind):
+    """Six steps through one step function (eager, capture, four replays) give
+    the parameters, moments, counts and metrics of six eager steps from the
+    same state, each a fresh step function's first call, bit for bit; the five
+    losses of the capture and the replays are five tensors of their own."""
+    (a, state_a), (b, state_b) = _step_pair(dev, kind)
+    step = _step_fn(a, kind)
+    batches = _step_batches(dev, kind, 6)
+    got, want = [], []
+    for batch in batches:
+        got.append(step(state_a, batch, 2.0))
+        eager = _step_fn(b, kind)
+        want.append(eager(state_b, batch, 2.0))
+        assert (eager.graph_eager, eager.graph_captures, eager.graph_replays) == (1, 0, 0)
+    torch.cuda.synchronize()
+    assert (step.graph_eager, step.graph_captures, step.graph_replays) == (1, 1, 4)
+    for g, w in zip(got, want):
+        assert g["lr"] == w["lr"]
+        for k in ("loss", "logit_scale", "acc1", "acc5"):
+            assert torch.equal(g[k], w[k]), k
+    _assert_same_state(a, state_a, b, state_b)
+    losses = torch.stack([m["loss"] for m in got[1:]])
+    assert len(set(losses.tolist())) == 5, losses
+
+
+def _il_reset(model, state, step):
+    """An IL reset as ``ILController.on_step`` makes it: snapshot and hold the
+    codebook, redraw the text tower and zero its moments and counts, freeze
+    the vision tower."""
+    from iterated_learning_for_vlm_tpu_torch.train import il, optim
+
+    params = dict(model.named_parameters())
+    state.stored_codebook = params["space_dict"].detach().clone()
+    state.hold_codebook = True
+    mask = il.weight_reset_tree(params, optim.TEXT_ROOTS, (1, step, "text"))
+    optim.reset_opt_state_for(state.opt_state, mask)
+    state.trainable = optim.trainable_mask_tree(params, frozenset({"vision"}))
+
+
+def _il_release(model, state):
+    from iterated_learning_for_vlm_tpu_torch.train import optim
+
+    state.hold_codebook = False
+    state.trainable = optim.trainable_mask_tree(dict(model.named_parameters()))
+
+
+def test_step_graph_recaptures_at_il_events(dev):
+    """An IL reset after step 3 (snapshot, hold, text redrawn and its counts
+    zeroed, vision frozen) and a release with a new temperature after step 6
+    each change the key: every three steps run eager, capture, replay, and
+    all nine equal eager steps from the same state bit for bit."""
+    (a, state_a), (b, state_b) = _step_pair(dev, "fdt")
+    step = _step_fn(a, "fdt")
+    for k, batch in enumerate(_step_batches(dev, "fdt", 9)):
+        temperature = 2.0 if k < 6 else 1.0
+        got = step(state_a, batch, temperature)
+        want = _step_fn(b, "fdt")(state_b, batch, temperature)
+        assert torch.equal(got["loss"], want["loss"]), k
+        if k == 2:
+            _il_reset(a, state_a, 3)
+            _il_reset(b, state_b, 3)
+        if k == 5:
+            _il_release(a, state_a)
+            _il_release(b, state_b)
+    torch.cuda.synchronize()
+    assert (step.graph_eager, step.graph_captures, step.graph_replays) == (3, 3, 3)
+    _assert_same_state(a, state_a, b, state_b)
+
+
+def test_step_graph_two_steps_share_a_pool(dev):
+    """Two models' step functions in one process, their calls interleaved
+    (each eager, capture, four replays), capture on one side stream into
+    one memory pool: each model's six steps equal six eager steps from the
+    same state bit for bit, though each replay overwrites what the other
+    graph left in the pool."""
+    from iterated_learning_for_vlm_tpu_torch.train.step import _side
+
+    assert _side(dev) is _side(dev)
+    (a, state_a), (a2, state_a2) = _step_pair(dev, "fdt")
+    (b, state_b), (b2, state_b2) = _step_pair(dev, "clip")
+    step_a, step_b = _step_fn(a, "fdt"), _step_fn(b, "clip")
+    for batch_a, batch_b in zip(_step_batches(dev, "fdt", 6), _step_batches(dev, "clip", 6)):
+        got_a, got_b = step_a(state_a, batch_a, 2.0), step_b(state_b, batch_b, 2.0)
+        want_a = _step_fn(a2, "fdt")(state_a2, batch_a, 2.0)
+        want_b = _step_fn(b2, "clip")(state_b2, batch_b, 2.0)
+        assert torch.equal(got_a["loss"], want_a["loss"])
+        assert torch.equal(got_b["loss"], want_b["loss"])
+    torch.cuda.synchronize()
+    for step in (step_a, step_b):
+        assert (step.graph_eager, step.graph_captures, step.graph_replays) == (1, 1, 4)
+    assert len({entry.graph.pool() for entry in _side(dev)[1]}) == 1
+    _assert_same_state(a, state_a, a2, state_a2)
+    _assert_same_state(b, state_b, b2, state_b2)
+
+
+def test_step_graph_takes_a_new_pool_when_all_graphs_are_gone(dev):
+    """When every graph of the shared pool is gone (its step functions freed),
+    the next step's capture takes a new pool instead of the one the
+    allocator is freeing, and replays as before."""
+    (a, state_a), _ = _step_pair(dev, "clip")
+    step = _step_fn(a, "clip")
+    for batch in _step_batches(dev, "clip", 3):
+        step(state_a, batch, 2.0)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    (b, state_b), (b2, state_b2) = _step_pair(dev, "clip")
+    step = _step_fn(b, "clip")
+    for batch in _step_batches(dev, "clip", 3):
+        got = step(state_b, batch, 2.0)
+        want = _step_fn(b2, "clip")(state_b2, batch, 2.0)
+        assert torch.equal(got["loss"], want["loss"])
+    assert (step.graph_eager, step.graph_captures, step.graph_replays) == (1, 1, 1)
+    _assert_same_state(b, state_b, b2, state_b2)
+
+
+@pytest.mark.parametrize("kind", ["fdt", "swinmoe"])
+def test_step_graph_replay_advances_the_counters(dev, kind):
+    """Each of four steps (eager, capture, two replays) advances every kernel
+    wrapper's ``.launches`` and the routes' counts by the eager step's
+    increments: a capture adds what it launches once (at its replay), a
+    replay what its capture recorded."""
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    def counts():
+        return _counts()[0] + [wa.window_attention_fwd.launches,
+                               wa.window_attention_bwd.launches] + list(_counts()[1:])
+
+    (a, state_a), _ = _step_pair(dev, kind)
+    step = _step_fn(a, kind)
+    deltas = []
+    for batch in _step_batches(dev, kind, 4):
+        before = counts()
+        step(state_a, batch, 2.0)
+        deltas.append([x - y for x, y in zip(counts(), before)])
+    assert (step.graph_eager, step.graph_captures, step.graph_replays) == (1, 1, 2)
+    assert all(d == deltas[0] for d in deltas), deltas
+    k2 = deltas[0][:2]
+    assert k2 == ([4, 4] if kind == "fdt" else [2, 2])  # the text tower's in both
+    assert deltas[0][2:5] == ([2, 2, 2] if kind == "fdt" else [0, 0, 0])
+    assert deltas[0][7:9] == ([0, 0] if kind == "fdt" else [4, 4])
+    assert deltas[0][9:] == [0, 0]
