@@ -913,7 +913,7 @@ def traced_launches(fn):
 
 def graph_counts(step) -> dict:
     """How the train step ran its calls: eagerly, captured, replayed."""
-    return {k: getattr(step, f"graph_{k}") for k in ("eager", "captures", "replays")}
+    return {k: getattr(step.graphs, k) for k in ("eager", "captures", "replays")}
 
 
 def make_trainer(model, is_fdt: bool = True):

@@ -25,23 +25,14 @@ slice of every batch and an ``all_gather`` gives every rank the whole batch,
 so every rank computes the same metrics. Every rank must then make the same
 calls. With no group, or a world of 1, it is the one-device path.
 
-On a CUDA device ``text_batch`` replays its encode as a CUDA graph: a text
-call has one fixed shape, and eager it costs the host ~650 launches (the
-bisection sparsemax alone 372). The key is the local call's shape and dtypes,
-``normalize``, ``sd_temperature`` (K1 takes it as a host float) and the
-addresses of every parameter and buffer of the model (a graph reads them
-where they lay at capture, so a replaced tensor is a new key; one updated in
-place is read anew by the next replay). A key's first call runs eager, its
-second is warmed up on a side stream and captured (the warm-up's result is
-the call's), later ones copy their inputs into the graph's static buffers,
-replay it and return a copy of its output. The same kernels run in the same
-order, so a replay is bit for bit the eager call. CPU tensors stay eager;
-under ``data_parallel`` only the rank's own slice is graphed, the
-``all_gather`` not. The graphs belong to the encoder and go with it, and a
-change of weights or temperature drops them. ``text_graph_eager``,
-``text_graph_captures`` and ``text_graph_replays`` count the calls of each
-kind; a replay adds to the kernel wrappers' ``.launches`` (and the route
-counters) what its capture counted, so they still say what ran.
+On a CUDA device ``text_batch`` replays its encode through ``text_graphs``,
+a ``GraphCache`` (``ops/graphs.py``): eager, a text call costs the host ~650
+launches (the bisection sparsemax alone 372). The key is the local call's
+shape, dtypes and ``normalize``; a new ``sd_temperature`` (K1 takes it as a
+host float) or a new address of any parameter or buffer drops every graph (a
+parameter updated in place is read anew by the next replay). A replay is bit
+for bit the eager call. CPU tensors stay eager; under ``data_parallel`` only
+the rank's own slice is graphed, the ``all_gather`` not.
 
 Under a running ``torch.profiler`` the encoder opens spans
 (``utils/profiling.py``): ``encode.tokenize`` (attrs ``rows``, ``ctx``),
@@ -64,9 +55,8 @@ import torch.distributed as dist
 
 from ..data.augment import build_common_augmentation
 from ..data.pipeline import pick_context_bucket
-from ..models.fdt import codebook_route
-from ..models.layers import LayerNorm, attention_route
-from ..ops import codebook_attention, flash_attention, fused_attention
+from ..models.layers import LayerNorm
+from ..ops.graphs import GraphCache
 from ..parallel.mesh import data_rank_world
 from ..utils.profiling import span
 
@@ -74,65 +64,6 @@ from ..utils.profiling import span
 # scale, the FDT codebook): JAX ``eval/encode.py:_CAST_KEEP_FP32``
 _CAST_KEEP_FP32 = ("ln_", "norm", "bn", "batch", "logit_scale", "space_dict",
                    "running_", "relative_position")
-
-# the counters a text encode advances: the forward kernels' launches and the
-# routes that refused a kernel
-_COUNTERS = ((fused_attention.tiny_attention_fwd, "launches"),
-             (codebook_attention.codebook_pool_fwd, "launches"),
-             (flash_attention.flash_attention_fwd, "launches"),
-             (attention_route, "plain_routes"), (codebook_route, "plain_routes"))
-
-
-def _counts() -> list:
-    return [getattr(obj, attr) for obj, attr in _COUNTERS]
-
-
-def _advance(deltas) -> None:
-    for (obj, attr), d in zip(_COUNTERS, deltas):
-        if d:
-            setattr(obj, attr, getattr(obj, attr) + d)
-
-
-class _TextGraph:
-    """One text encode captured as a CUDA graph: static input buffers, the
-    graph, its static output, and what its capture added to the counters,
-    which each replay adds again."""
-
-    @staticmethod
-    def takes(tokens: torch.Tensor) -> bool:
-        """Whether a call on ``tokens`` is graphed: on a CUDA device."""
-        return tokens.is_cuda
-
-    def __init__(self, tokens: torch.Tensor, pad_mask: torch.Tensor):
-        self.tokens, self.pad_mask = tokens.clone(), pad_mask.clone()
-
-    def capture(self, encode) -> torch.Tensor:
-        """Warm ``encode`` up on a side stream (``torch.cuda.graphs``: lazy
-        per-stream state is set up outside the capture), then capture it on
-        that stream. Returns the warm-up's result, this call's."""
-        current = torch.cuda.current_stream(self.tokens.device)
-        side = torch.cuda.Stream(self.tokens.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            first = encode(self.tokens, self.pad_mask)
-        current.wait_stream(side)
-        first.record_stream(current)
-        before = _counts()
-        self.graph = torch.cuda.CUDAGraph()
-        # thread_local: a loader thread's CUDA calls elsewhere do not void it
-        with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
-            self.out = encode(self.tokens, self.pad_mask)
-        self.deltas = [a - b for a, b in zip(_counts(), before)]
-        _advance([-d for d in self.deltas])  # a capture launches nothing
-        return first
-
-    def __call__(self, tokens: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
-        self.tokens.copy_(tokens)
-        self.pad_mask.copy_(pad_mask)
-        self.graph.replay()
-        _advance(self.deltas)
-        return self.out.clone()
-
 
 def serving_cast(model, dtype=torch.bfloat16):
     """A copy of ``model`` whose fp32 parameters are cast to ``dtype`` once,
@@ -187,13 +118,11 @@ class TorchEncoder:
         if sd_temperature is None:
             sd_temperature = model.fdt_cfg.sd_temperature if self.is_fdt else 0.0
         self.sd_temperature = float(sd_temperature)
-        # the text encode's CUDA graphs by call key, None after a key's first
-        # call; they hold for one temperature and set of weights (_graph_state)
-        self._text_graphs = {}
+        # the text encode's CUDA graphs, which hold for one temperature and
+        # set of weights (_graph_state)
+        self.text_graphs = GraphCache()
         self._graph_state = None
         self._weights = None  # _weight_key() for the length of encode_texts_tokens
-        self._text_mode = None  # how the last text call ran
-        self.text_graph_eager = self.text_graph_captures = self.text_graph_replays = 0
 
     def _checked(self, tokenizer):
         """An out-of-range token id gathers garbage: refuse a tokenizer whose
@@ -239,50 +168,31 @@ class TorchEncoder:
     def text_batch(self, tokens: torch.Tensor, pad_mask: torch.Tensor,
                    normalize: Optional[bool] = None):
         """One batch of token ids and pad mask on the model's device -> [B, E]
-        fp32, a tensor of its own (a replay's output is copied out)."""
+        fp32, a tensor of its own, through ``text_graphs`` (module docstring)."""
         normalize = self.normalize if normalize is None else bool(normalize)
 
-        def encode(tok, pad):
+        def encode(x):
             if self.is_fdt:
-                emb = self.model.extract_txt_sd_ft(tok, pad, temperature=self.sd_temperature)[1]
+                emb = self.model.extract_txt_sd_ft(x["tokens"], x["pad_mask"],
+                                                   temperature=self.sd_temperature)[1]
             else:
-                emb = self.model.encode_text(tok, pad)["embed"]
-            return self._finish(emb, normalize)
-        return self._split(lambda tok, pad: self._text_local(encode, tok, pad, normalize),
-                           tokens, pad_mask)
+                emb = self.model.encode_text(x["tokens"], x["pad_mask"])["embed"]
+            return {"emb": self._finish(emb, normalize)}
+
+        def local(tok, pad):
+            state = (self.sd_temperature,
+                     self._weight_key() if self._weights is None else self._weights)
+            if state != self._graph_state:
+                self.text_graphs.clear()
+                self._graph_state = state
+            key = (tuple(tok.shape), tok.dtype, tuple(pad.shape), pad.dtype, normalize)
+            return self.text_graphs(encode, {"tokens": tok, "pad_mask": pad}, key)["emb"]
+        return self._split(local, tokens, pad_mask)
 
     def _weight_key(self) -> tuple:
         """The addresses of the model's parameters and buffers."""
         return tuple(t.data_ptr() for t in itertools.chain(self.model.parameters(),
                                                             self.model.buffers()))
-
-    def _text_local(self, encode, tokens, pad_mask, normalize: bool) -> torch.Tensor:
-        """``encode(tokens, pad_mask)``: eager on the CPU and at a key's first
-        call, captured at its second, replayed after (module docstring)."""
-        graphs = self._text_graphs
-        if _TextGraph.takes(tokens):
-            state = (self.sd_temperature,
-                     self._weight_key() if self._weights is None else self._weights)
-            if state != self._graph_state:
-                graphs.clear()
-                self._graph_state = state
-            key = (tuple(tokens.shape), tokens.dtype, tuple(pad_mask.shape), pad_mask.dtype,
-                   normalize)
-            if graphs.get(key) is not None:
-                self.text_graph_replays += 1
-                self._text_mode = "replay"
-                return graphs[key](tokens, pad_mask)
-            if key in graphs:
-                graph = _TextGraph(tokens, pad_mask)
-                out = graph.capture(encode)
-                graphs[key] = graph
-                self.text_graph_captures += 1
-                self._text_mode = "capture"
-                return out
-            graphs[key] = None
-        self.text_graph_eager += 1
-        self._text_mode = "eager"
-        return encode(tokens, pad_mask)
 
     def preprocess(self, pil_images: Iterable) -> np.ndarray:
         """The eval transform of each image, on ``num_workers`` threads (the
@@ -338,7 +248,7 @@ class TorchEncoder:
         out = []
         bs = self.batch_size
         # the weights' addresses, read once for the call's batches
-        self._weights = self._weight_key() if self.device.type == "cuda" else None
+        self._weights = self._weight_key()
         try:
             for i in range(0, len(tokens), bs):
                 tok = np.asarray(tokens[i:i + bs])
@@ -352,7 +262,7 @@ class TorchEncoder:
                     emb = self.text_batch(
                         torch.from_numpy(np.ascontiguousarray(tok, np.int64)).to(self.device),
                         torch.from_numpy(np.ascontiguousarray(pad)).to(self.device), normalize)
-                    s.set(graph=self._text_mode)
+                    s.set(graph=self.text_graphs.mode)
                 with span("encode.fetch", rows=real):
                     out.append(emb[:real].cpu().numpy())
         finally:

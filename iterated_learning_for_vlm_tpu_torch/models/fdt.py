@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from ..ops import codebook_attention
+from ..ops.graphs import counted
 from .clip import LOGIT_SCALE_INIT, LOGIT_SCALE_MAX, build_vision_tower, l2_normalize
 from .initializers import scaled_normal, torch_bias_uniform, torch_kaiming_uniform
 from .layers import LayerNorm, Linear
@@ -46,6 +47,7 @@ class FDTConfig:
     use_fused_kernel: bool = False  # fused codebook pooling kernel (K1)
 
 
+@counted("plain_routes")
 def codebook_route(q: torch.Tensor, sd_dim: int) -> bool:
     """Whether the fused codebook kernels (K1) take ``q [B, T, sd_dim]``: on a
     CUDA device they need bf16 and ``sd_dim`` a multiple of 64, at most
@@ -58,9 +60,6 @@ def codebook_route(q: torch.Tensor, sd_dim: int) -> bool:
     if not takes:
         codebook_route.plain_routes += 1
     return takes
-
-
-codebook_route.plain_routes = 0
 
 
 class QueryModel(nn.Module):

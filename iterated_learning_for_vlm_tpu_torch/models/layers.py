@@ -41,6 +41,7 @@ from ..ops import flash_attention as fl
 from ..ops import fused_attention as fa
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_attention import attention_reference, causal_bias, fused_tiny_attention
+from ..ops.graphs import counted
 from .initializers import scaled_normal, torch_bias_uniform
 
 
@@ -105,6 +106,7 @@ def packed_in_proj(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dt
     return y, bias
 
 
+@counted("plain_routes")
 def attention_route(use_flash: bool, fused_attn: bool, seq: int, head_dim: int, dtype,
                     device) -> str:
     """The route of one attention call: "flash" (K3), "fused" (K2) or "plain".
@@ -130,9 +132,6 @@ def attention_route(use_flash: bool, fused_attn: bool, seq: int, head_dim: int, 
         return route
     attention_route.plain_routes += 1
     return "plain"
-
-
-attention_route.plain_routes = 0
 
 
 class MultiheadAttention(nn.Module):

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .graphs import counted
 from ..models.sparsemax import sparsemax_bisect
 
 DEPTH_STEP = 64  # the forward kernel stages D in steps of 64
@@ -105,6 +106,7 @@ def _check_bwd_args(q, sd, keep, amax, g, name):
                              f"on {x.device}")
 
 
+@counted("launches")
 def codebook_pool_fwd(q: torch.Tensor, sd: torch.Tensor, keep: Optional[torch.Tensor],
                       temperature: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pooled codebook logits and their argmax token: ``(pooled, amax)``.
@@ -131,9 +133,6 @@ def codebook_pool_fwd(q: torch.Tensor, sd: torch.Tensor, keep: Optional[torch.Te
     _build.check(status, "codebook_pool_fwd")
     codebook_pool_fwd.launches += 1
     return pooled, amax
-
-
-codebook_pool_fwd.launches = 0
 
 
 def pool_coeff(depth: int, temperature: float) -> float:
@@ -189,6 +188,7 @@ def _launch_bwd(entry, out, q, sd, keep, temperature, amax, g, scratch):
     return out
 
 
+@counted("launches")
 def codebook_pool_bwd_dq(q, sd, keep, temperature, amax, g):
     """``dq [B, T, D]`` in q's dtype; g is the fp32 ``[B, N]`` gradient of
     ``pooled`` and amax the forward's argmax. On the card: a route kernel
@@ -208,9 +208,7 @@ def codebook_pool_bwd_dq(q, sd, keep, temperature, amax, g):
     return out
 
 
-codebook_pool_bwd_dq.launches = 0
-
-
+@counted("launches")
 def codebook_pool_bwd_dsd(q, sd, keep, temperature, amax, g):
     """``dsd [N, D]`` in sd's dtype (arguments as :func:`codebook_pool_bwd_dq`).
     On the card: a route kernel writes each (b, n)'s token and weight into an
@@ -226,9 +224,6 @@ def codebook_pool_bwd_dsd(q, sd, keep, temperature, amax, g):
                       temperature, amax, g, scratch)
     codebook_pool_bwd_dsd.launches += 1
     return out
-
-
-codebook_pool_bwd_dsd.launches = 0
 
 
 def codebook_pool_bwd(q, sd, keep, temperature, amax, g):

@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .graphs import counted
 
 MAX_SEQ = 1024  # the kernels stage keys in chunks; the wrappers bound S here
 HEAD_DIM = 64
@@ -137,6 +138,7 @@ def _check_cuda_args(q, k, v, bias, name="flash_attention_fwd"):
                          f"on {q.device}, got {tuple(bias.shape)} {bias.dtype}")
 
 
+@counted("launches")
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: Optional[torch.Tensor] = None, causal: bool = False,
                         with_lse: bool = False):
@@ -166,9 +168,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if with_lse else out
 
 
-flash_attention_fwd.launches = 0
-
-
+@counted("launches")
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: Optional[torch.Tensor], lse: torch.Tensor, dout: torch.Tensor,
                         causal: bool = False
@@ -204,9 +204,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(status, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     return dq, dk, dv
-
-
-flash_attention_bwd.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

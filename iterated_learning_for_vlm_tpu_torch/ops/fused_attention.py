@@ -44,6 +44,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .graphs import counted
 
 MAX_SEQ = 128  # the tower routes longer sequences to the plain path
 HEAD_DIM = 64  # the kernel's head width (every main-path tower)
@@ -162,6 +163,7 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+@counted("launches")
 def tiny_attention_fwd(qkv: torch.Tensor, heads: int, causal: bool = False,
                        qkv_bias: Optional[torch.Tensor] = None,
                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -189,9 +191,7 @@ def tiny_attention_fwd(qkv: torch.Tensor, heads: int, causal: bool = False,
     return out
 
 
-tiny_attention_fwd.launches = 0
-
-
+@counted("launches")
 def tiny_attention_bwd(qkv: torch.Tensor, heads: int, causal: bool,
                        qkv_bias: Optional[torch.Tensor], dout: torch.Tensor,
                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -218,9 +218,6 @@ def tiny_attention_bwd(qkv: torch.Tensor, heads: int, causal: bool,
     _build.check(status, "tiny_attention_bwd")
     tiny_attention_bwd.launches += 1
     return dqkv
-
-
-tiny_attention_bwd.launches = 0
 
 
 class TinyAttention(torch.autograd.Function):

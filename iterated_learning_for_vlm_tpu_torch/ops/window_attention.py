@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .graphs import counted
 
 MAX_N = 144      # tokens a window: 12 x 12, the largest window the kernels take
 HEAD_DIM = 32    # every Swin-B stage's head width
@@ -154,6 +155,7 @@ def _check_cuda_args(name: str, qkv: torch.Tensor, bias: torch.Tensor, heads: in
                          f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
 
 
+@counted("launches")
 def window_attention_fwd(qkv: torch.Tensor, bias: torch.Tensor, heads: int) -> torch.Tensor:
     """Attention over each window of ``qkv [W, N, 3C]`` with the fp32 additive
     ``bias [nbias, H, N, N]`` (window w takes ``bias[w % nbias]``) ->
@@ -174,9 +176,7 @@ def window_attention_fwd(qkv: torch.Tensor, bias: torch.Tensor, heads: int) -> t
     return out
 
 
-window_attention_fwd.launches = 0
-
-
+@counted("launches")
 def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
                          dout: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dqkv [W, N, 3C], dbias [H, N, N] fp32)`` of :func:`window_attention_fwd`
@@ -208,9 +208,6 @@ def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     _build.check(status, "window_attention_bwd")
     window_attention_bwd.launches += 1
     return dqkv, part.sum(dim=0)
-
-
-window_attention_bwd.launches = 0
 
 
 class WindowAttentionFn(torch.autograd.Function):

@@ -124,31 +124,22 @@ def adamw_scalars(state: Dict[str, Dict], names, trainable: Mapping[str, bool], 
 
 @torch.no_grad()
 def adamw_update(grads: Mapping[str, Optional[torch.Tensor]], state: Dict[str, Dict],
-                 params: Params, *, lr, wd_tree: Mapping[str, float],
+                 params: Params, *, lr: torch.Tensor, classes, wd_tree: Mapping[str, float],
                  trainable: Mapping[str, bool], b1: float = 0.9, b2: float = 0.98,
-                 eps: float = 1e-8, classes=None,
-                 zeros: Optional[Dict[str, torch.Tensor]] = None) -> None:
+                 eps: float = 1e-8, zeros: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """One AdamW step on the trainable parameters, in place:
 
         mu = b1 mu + (1 - b1) g;  nu = b2 nu + (1 - b2) g^2;  count += 1
         p -= lr (mu / (1 - b1^count) / (sqrt(nu / (1 - b2^count)) + eps) + wd p)
 
-    Two calls, and nothing else: ``lr`` a float and no ``classes``, and
-    this call runs :func:`adamw_scalars` itself; or ``lr`` the float32
-    tensor on the parameters' device that the host half's values were
-    copied into, with that call's ``classes`` (the counts have advanced
-    already). Either way the device reads ``lr`` and the bias corrections
-    from a tensor, so a CUDA graph of the step can replay it. A missing
-    gradient counts as zero (read from ``zeros``, a cache of zero tensors by
-    name, when given); frozen parameters are left alone. The arithmetic runs
-    as multi-tensor (``torch._foreach_*``) kernels."""
-    if isinstance(lr, torch.Tensor) != (classes is not None):
-        raise ValueError("adamw_update takes a float lr without classes, or a tensor lr "
-                         "with the classes of the adamw_scalars call that made it")
-    if classes is None:
-        classes, values = adamw_scalars(state, params, trainable, lr, b1, b2)
-        lr = torch.tensor(values, dtype=torch.float32).to(next(iter(params.values())).device,
-                                                          non_blocking=True)
+    ``lr`` is the float32 tensor on the parameters' device that the values
+    of an :func:`adamw_scalars` call were copied into, and ``classes`` that
+    call's (the counts have advanced already): the device reads ``lr`` and
+    the bias corrections from a tensor, so a CUDA graph of the step can
+    replay it. A missing gradient counts as zero (read from ``zeros``, a
+    cache of zero tensors by name, when given); frozen parameters are left
+    alone. The arithmetic runs as multi-tensor (``torch._foreach_*``)
+    kernels."""
     names = [n for cls in classes for n in cls]
     if not names:
         return

@@ -20,23 +20,12 @@ first: ``lr``, the AdamW counts and their bias corrections
 memory, from which the device's part reads them.
 
 On a CUDA device, unless the model is a ``DistributedDataParallel`` wrapper,
-the device's part is a CUDA graph (:class:`_StepGraph`), one per key
-(:func:`graph_key`: the inputs' shapes, the trainable names by AdamW count,
-the hold flag, the snapshot's address, the FDT temperature, the AdamW
-state's identity, the EMA tensors' addresses). A key's first call runs
-eagerly on a side stream, and is also the warm-up; its second is captured on
-that stream and replayed at once; later calls copy the batch into the
-graph's input buffers and replay it. Every step built in the process shares
-one side stream per device and, while any of its graphs lives, one memory
-pool (:func:`_side`): its graphs never run at once, and all that a replay reads before it writes (parameters, moments,
-the scalars, the inputs, the EMA tensors, the snapshot, the missing
-gradients' zeros that a key's eager call made) lives outside the pool.
-Each replay adds the kernel wrappers' counters that its capture advanced,
-and the step counts its calls in ``graph_eager``, ``graph_captures`` and
-``graph_replays``. After a replay each ``.grad`` is a buffer of a graph,
-and holds the step's gradient only until another graph of the process
-replays. On the CPU, and under DDP, every call runs eagerly, on the
-current stream.
+the device's part replays through ``step.graphs``, a ``GraphCache``
+(``ops/graphs.py``), one graph per :func:`graph_key`. What a replay reads
+before it writes (parameters, moments, the scalars, the EMA tensors, the
+snapshot, the missing gradients' zeros a key's eager call made) lives
+outside the graphs' pool; after a replay each ``.grad`` is a buffer of the
+graph. On the CPU, and under DDP, every call runs eagerly.
 
 Data parallel: given a ``DistributedDataParallel`` wrapper, the step runs
 the forward through it (DDP averages the gradients over the ranks during
@@ -54,18 +43,14 @@ so every caller of the step gets them (``utils/profiling.py``).
 """
 from __future__ import annotations
 
-import collections
-import gc
-import weakref
-from typing import Any, Callable, Dict, Mapping, Optional
+import contextlib
+from typing import Any, Callable, Dict, Mapping
 
 import torch
 
 from torch.nn.parallel import DistributedDataParallel
 
-from ..models.fdt import codebook_route
-from ..models.layers import attention_route
-from ..ops import codebook_attention, flash_attention, fused_attention, window_attention
+from ..ops.graphs import GraphCache
 from ..utils.profiling import span
 from .loss import clip_info_nce, clip_info_nce_sharded
 from .optim import adamw_scalars, adamw_update, clamp_logit_scale, clip_grads
@@ -73,56 +58,6 @@ from .train_state import TrainState
 
 MOE_AUX_WEIGHT = 0.01  # Swin-MoE's load-balancing weight (JAX train/step.py)
 INPUTS = ("image", "tokens", "pad_mask")  # what the step reads of a batch
-# keys remembered (graphs, and keys seen once), the latest used: each graph
-# holds a copy of its inputs (154 MB for a bs-256 224-px batch)
-GRAPHS_KEPT = 8
-
-# the counters a train step advances: every kernel's launches and the routes
-# that refused a kernel
-_COUNTERS = tuple((fn, "launches") for fn in (
-    fused_attention.tiny_attention_fwd, fused_attention.tiny_attention_bwd,
-    codebook_attention.codebook_pool_fwd, codebook_attention.codebook_pool_bwd_dq,
-    codebook_attention.codebook_pool_bwd_dsd, flash_attention.flash_attention_fwd,
-    flash_attention.flash_attention_bwd, window_attention.window_attention_fwd,
-    window_attention.window_attention_bwd)) + ((attention_route, "plain_routes"),
-                                                (codebook_route, "plain_routes"))
-
-
-_SIDE: Dict[int, tuple] = {}  # device index -> (side stream, the live graphs)
-
-
-def _side(device: torch.device) -> tuple:
-    """The side stream of every train step on ``device``, and the set of
-    their live graphs, whose memory pool the next capture shares: the
-    caching allocator reuses a pool's free blocks only on the stream that
-    allocated them, so one stream and one pool keep one step's worth of
-    graph memory for a process that holds several steps (trainers of
-    several models, or of one model on two paths)."""
-    index = torch.cuda.current_device() if device.index is None else device.index
-    if index not in _SIDE:
-        _SIDE[index] = (torch.cuda.Stream(index), weakref.WeakSet())
-    return _SIDE[index]
-
-
-def _live_pool(graphs) -> Optional[tuple]:
-    """The memory pool of a live graph in ``graphs``, or None for a new one.
-    Once a pool's graphs are all gone the allocator frees it, and a capture
-    into it fails; a graph that only a reference cycle holds goes in this
-    collection, not in the one ``torch.cuda.graph`` makes on entry."""
-    gc.collect()
-    for entry in graphs:
-        return entry.graph.pool()
-    return None
-
-
-def _counts() -> list:
-    return [getattr(obj, attr) for obj, attr in _COUNTERS]
-
-
-def _advance(deltas) -> None:
-    for (obj, attr), d in zip(_COUNTERS, deltas):
-        if d:
-            setattr(obj, attr, getattr(obj, attr) + d)
 
 
 def graph_key(state: TrainState, inputs: Mapping[str, torch.Tensor], sd_temperature,
@@ -137,41 +72,6 @@ def graph_key(state: TrainState, inputs: Mapping[str, torch.Tensor], sd_temperat
     return (tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()), classes,
             state.hold_codebook, state.stored_codebook.data_ptr(), sd_temperature,
             id(state.opt_state), state.ema_buffer.data_ptr(), state.ema_clip_count.data_ptr())
-
-
-class _StepGraph:
-    """One train step captured as a CUDA graph: static input buffers, the
-    graph, its static metrics, what its capture added to the counters (which
-    each replay adds again), and the objects its key names by identity or
-    address, held so that no other object takes their place."""
-
-    def __init__(self, inputs: Mapping[str, torch.Tensor], held: tuple):
-        self.inputs = {k: v.clone() for k, v in inputs.items()}
-        self.held = held
-
-    def capture(self, run: Callable, stream: torch.cuda.Stream, graphs) -> None:
-        """Capture ``run(inputs)`` on ``stream`` (warmed up by the key's eager
-        call) into the pool of the live ``graphs``, and join them.
-        ``torch.cuda.graph`` synchronizes and empties the allocator's cache
-        on entry, so the eager step's cached blocks are not held beside the
-        pool."""
-        pool = _live_pool(graphs)
-        before = _counts()
-        self.graph = torch.cuda.CUDAGraph()
-        # thread_local: a loader thread's CUDA calls elsewhere do not void it
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            self.out = run(self.inputs)
-        self.deltas = [a - b for a, b in zip(_counts(), before)]
-        _advance([-d for d in self.deltas])  # a capture launches nothing
-        graphs.add(self)
-
-    def __call__(self, inputs: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        for k, v in self.inputs.items():
-            v.copy_(inputs[k])
-        self.graph.replay()
-        _advance(self.deltas)
-        return {k: v.clone() for k, v in self.out.items()}
 
 
 def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
@@ -198,67 +98,32 @@ def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
     params = dict((model.module if data_parallel else model).named_parameters())
     names = tuple(params)
     zeros: Dict[str, torch.Tensor] = {}  # the missing gradients' zeros, by name
-    # key -> _StepGraph, or None after the key's first call
-    graphs: collections.OrderedDict = collections.OrderedDict()
-    cuda: Dict[str, Any] = {}  # side stream, live graphs, scalar buffer: at the first call
+    graphs = GraphCache()
+    # lr and each class's bias corrections, on the parameters' device
+    scalars_buffer = torch.empty(1 + 2 * len(names), dtype=torch.float32,
+                                 device=next(iter(params.values())).device)
 
     def step(state: TrainState, batch: Dict[str, Any], sd_temperature: float):
         with span("train.step", step=state.step + 1, ctx=batch["tokens"].shape[1]):
             lr = schedule(state.step + 1)
             classes, values = adamw_scalars(state.opt_state, names, state.trainable, lr, b1, b2)
             inputs = {k: batch[k] for k in INPUTS if batch.get(k) is not None}
-            device = inputs["image"].device
-            if device.type == "cuda":
-                if not cuda:
-                    stream, live = _side(device)
-                    cuda.update(stream=stream, graphs=live,
-                                scalars=torch.empty(1 + 2 * len(names), dtype=torch.float32,
-                                                    device=device))
-                scalars = cuda["scalars"][:len(values)]
-                # from pinned memory, which the host allocator keeps until the
-                # copy has run (a pageable copy may wait for the stream)
-                scalars.copy_(torch.tensor(values, dtype=torch.float32).pin_memory(),
-                              non_blocking=True)
-            else:
-                scalars = torch.tensor(values, dtype=torch.float32)
+            scalars = scalars_buffer[:len(values)]
+            host = torch.tensor(values, dtype=torch.float32)
+            # from pinned memory, which the host allocator keeps until the
+            # copy has run (a pageable copy may wait for the stream)
+            scalars.copy_(host.pin_memory() if scalars.is_cuda else host, non_blocking=True)
 
             def run(inputs):
                 return _device_step(state, inputs, sd_temperature, classes, scalars)
 
-            if device.type == "cuda" and not data_parallel:
-                out = graphed(state, inputs, sd_temperature, classes, run)
-            else:
-                step.graph_eager += 1
-                out = run(inputs)
+            temperature = sd_temperature if is_fdt else None
+            key = None if data_parallel else graph_key(state, inputs, temperature, classes)
+            with span("train.replay") if graphs.captured(key) else contextlib.nullcontext():
+                out = graphs(run, inputs, key, held=(state.opt_state, state.stored_codebook,
+                                                     state.ema_buffer, state.ema_clip_count))
             state.step += 1
             return {"loss": out.pop("loss"), "lr": lr, **out}
-
-    def graphed(state, inputs, sd_temperature, classes, run):
-        key = graph_key(state, inputs, sd_temperature if is_fdt else None, classes)
-        if key in graphs:
-            graphs.move_to_end(key)
-            if graphs[key] is not None:
-                step.graph_replays += 1
-                with span("train.replay"):
-                    return graphs[key](inputs)
-            entry = _StepGraph(inputs, (state.opt_state, state.stored_codebook,
-                                        state.ema_buffer, state.ema_clip_count))
-            entry.capture(run, cuda["stream"], cuda["graphs"])
-            graphs[key] = entry
-            step.graph_captures += 1
-            return entry(inputs)
-        graphs[key] = None
-        while len(graphs) > GRAPHS_KEPT:
-            graphs.popitem(last=False)
-        step.graph_eager += 1
-        current, side = torch.cuda.current_stream(), cuda["stream"]
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            out = run(inputs)
-        current.wait_stream(side)
-        for v in out.values():
-            v.record_stream(current)
-        return out
 
     def _device_step(state, inputs, sd_temperature, classes, scalars):
         """The device's part of a step: what a graph captures."""
@@ -311,7 +176,7 @@ def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
                     params["space_dict"].copy_(state.stored_codebook)
         return {"loss": loss.detach(), "logit_scale": ls.detach().mean(), **metrics}
 
-    step.graph_eager = step.graph_captures = step.graph_replays = 0
+    step.graphs = graphs
     return step
 
 

@@ -8,9 +8,10 @@ Counterpart of ``iterated_learning_for_vlm_tpu/utils/profiling.py``:
   session runs in the process (``torch.autograd.profiler._is_profiler_enabled``,
   set at every profiler start whatever its activities). Otherwise it reads
   that flag and returns the name's shared no-op: no ``record_function``, no
-  clock read, no allocation. While on, it opens
-  ``torch.profiler.record_function(name)``, a ``user_annotation`` in the
-  Chrome trace of a profile with host activity (with CUDA activity too, also
+  clock read, no allocation. While on, it opens a user-scope record
+  function, as ``torch.profiler.record_function(name)`` does but through the
+  profiler's own entry (``_rf_enter``), a ``user_annotation`` in the Chrome
+  trace of a profile with host activity (with CUDA activity too, also
   a ``gpu_user_annotation`` over its kernels; a CUDA-only trace holds
   neither), and appends one entry to an in-memory ring of the last
   :data:`RING` spans: ``name``, ``id``, ``parent`` (the id of the span open
@@ -49,6 +50,7 @@ import contextlib
 import functools
 import itertools
 import json
+import operator
 import os
 import threading
 import time
@@ -57,8 +59,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 import torch.autograd.profiler as _autograd_profiler
+from torch.autograd import _record_function_with_args_enter as _rf_enter
+from torch.autograd import _record_function_with_args_exit as _rf_exit
 
 RING = 1 << 16  # spans kept; the oldest go first
+_call = operator.call
 
 _record: collections.deque = collections.deque(maxlen=RING)
 _ids = itertools.count(1)
@@ -109,18 +114,18 @@ class _Span:
         self._parent = stack[-1] if stack else None
         self._id = next(_ids)
         stack.append(self._id)
-        self._rf = torch.profiler.record_function(self.name)
-        # the profiler stamps the annotation's start somewhere inside
-        # __enter__; its first annotation in a session spends tens of us on
-        # either side of the stamp, so the start is the call's midpoint
-        before = time.time_ns()
-        self._rf.__enter__()
-        self._start = (before + time.time_ns()) // 2
+        # the profiler stamps the annotation's start a few us into _rf_enter,
+        # before it builds the handle. The clock is read in the same C-level
+        # call sequence (map), so no bytecode runs in between and no other
+        # thread can take the GIL there; record_function's op dispatch could
+        # spend hundreds of us on either side of its stamp.
+        self._start, self._rf = map(_call, (time.time_ns, functools.partial(_rf_enter,
+                                                                            self.name)))
         return self
 
     def __exit__(self, *exc):
-        self._rf.__exit__(*exc)
-        end = time.time_ns()  # the exit's work after its stamp is a few us
+        # the exit's stamp is about a us before _rf_exit returns
+        _, end = map(_call, (functools.partial(_rf_exit, self._rf), time.time_ns))
         _stack().remove(self._id)
         _record.append((self.name, self._id, self._parent, self._start, end,
                         threading.get_native_id(), self.attrs))
@@ -136,12 +141,10 @@ class _Span:
 
 _OFF: Dict[str, _Off] = {}
 
-# A process's first record_function spends ~0.5 ms after the profiler's stamp
-# (binding its handle). Taken here, with no profiler running, it records
-# nothing, and a span's midpoint start stays within a few us of its stamp.
+# A process's first record function spends ~0.5 ms binding its handle. Taken
+# here, with no profiler running, it records nothing.
 if not _autograd_profiler._is_profiler_enabled:
-    with torch.profiler.record_function("profiling.warm"):
-        pass
+    _rf_exit(_rf_enter("profiling.warm"))
 
 
 def span(name: str, **attrs):

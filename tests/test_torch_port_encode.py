@@ -30,6 +30,7 @@ from iterated_learning_for_vlm_tpu_torch.models.layers import LayerNorm
 from iterated_learning_for_vlm_tpu_torch.models import model_entry
 from iterated_learning_for_vlm_tpu_torch.tools.torch_checkpoint import load_jax_params
 from test_torch_port_slice import CTX, VOCAB, make_batch, small_cfg
+from torch_port_graph_stub import stub_graphs  # noqa: F401 (fixture)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -181,30 +182,10 @@ def test_serving_cast_refuses_an_fp32_model():
 
 
 # -- CUDA graphs of the text encode: the key's rules, through a stand-in -----
-
-class StubGraph:
-    """Stands in for ``encode._TextGraph`` on the CPU: takes every tensor,
-    records each capture's input shape, and computes eagerly what a replay
-    of the same encode gives."""
-
-    def __init__(self, tokens, pad_mask):
-        self.tokens, self.pad_mask = tokens, pad_mask
-
-    def capture(self, encode):
-        self.encode = encode
-        StubGraph.captured.append(tuple(self.tokens.shape))
-        return encode(self.tokens, self.pad_mask)
-
-    @staticmethod
-    def takes(tokens):
-        return True
-
-    def __call__(self, tokens, pad_mask):
-        return self.encode(tokens, pad_mask)
-
+# (``stub_graphs``, torch_port_graph_stub.py)
 
 def _graph_counts(enc):
-    return enc.text_graph_eager, enc.text_graph_captures, enc.text_graph_replays
+    return enc.text_graphs.eager, enc.text_graphs.captures, enc.text_graphs.replays
 
 
 def _small_encoder(seed=0):
@@ -214,15 +195,6 @@ def _small_encoder(seed=0):
                         sd_temperature=0.7, num_workers=1)
 
 
-@pytest.fixture
-def stub_graphs(monkeypatch):
-    from iterated_learning_for_vlm_tpu_torch.eval import encode as encode_mod
-
-    StubGraph.captured = []
-    monkeypatch.setattr(encode_mod, "_TextGraph", StubGraph)
-    return StubGraph.captured
-
-
 def test_cpu_encoder_never_captures():
     """On the CPU every text call runs eager: no graph, no key kept."""
     enc = _small_encoder()
@@ -230,7 +202,7 @@ def test_cpu_encoder_never_captures():
     for _ in range(2):
         assert np.array_equal(enc.encode_texts(CAPTIONS), first)
     assert _graph_counts(enc) == (6, 0, 0)
-    assert enc._text_graphs == {}
+    assert not enc.text_graphs._graphs
 
 
 def test_text_graph_captures_on_a_keys_second_call(stub_graphs):
@@ -280,7 +252,7 @@ def test_text_graph_key(stub_graphs, change, mode):
         elif change == "rows":
             tokens, pad = tokens[:3], pad[:3]
     got = enc.text_batch(tokens, pad, normalize)
-    assert enc._text_mode == mode
+    assert enc.text_graphs.mode == mode
     assert _graph_counts(enc) == ((1, 1, 1) if mode == "replay" else (2, 1, 0))
     fresh = _small_encoder()
     fresh.model.load_state_dict(enc.model.state_dict())

@@ -16,12 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from iterated_learning_for_vlm_tpu_torch.models import fdt as fdt_model
 from iterated_learning_for_vlm_tpu_torch.models import layers as layers_model
 from iterated_learning_for_vlm_tpu_torch.models import model_entry
 from iterated_learning_for_vlm_tpu_torch.ops import codebook_attention as cb
 from iterated_learning_for_vlm_tpu_torch.ops import flash_attention as fl
 from iterated_learning_for_vlm_tpu_torch.ops import fused_attention as fa
+from iterated_learning_for_vlm_tpu_torch.ops import graphs
 
 pytestmark = pytest.mark.gpu
 
@@ -758,20 +758,25 @@ def _assert_paths_agree(a, b, min_cos=0.999, min_grad_cos=0.99):
             assert cos >= min_grad_cos, (name, cos)
 
 
-COUNTED = (fa.tiny_attention_fwd, fa.tiny_attention_bwd, cb.codebook_pool_fwd,
-           cb.codebook_pool_bwd_dq, cb.codebook_pool_bwd_dsd, fl.flash_attention_fwd,
-           fl.flash_attention_bwd)
-
-
 def _counts():
-    return ([c.launches for c in COUNTED], layers_model.attention_route.plain_routes,
-            fdt_model.codebook_route.plain_routes)
+    """Every registered counter (``ops/graphs.py``) by name."""
+    return {f"{obj.__name__}.{attr}": getattr(obj, attr) for obj, attr in graphs.COUNTERS}
 
 
 def _deltas(before):
-    after = _counts()
-    return ([a - b for a, b in zip(after[0], before[0])], after[1] - before[1],
-            after[2] - before[2])
+    """The counters that moved since ``before``, by how much."""
+    return {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+
+
+def _moved(**by_name):
+    """``_deltas`` of the named wrappers' launches and routes' refusals."""
+    return {f"{n}.{'plain_routes' if n.endswith('_route') else 'launches'}": v
+            for n, v in by_name.items() if v}
+
+
+def _graph_counts(cache):
+    """A ``GraphCache``'s eager calls, captures and replays."""
+    return cache.eager, cache.captures, cache.replays
 
 
 def test_fdt_long_t_takes_the_codebook_kernels(dev):
@@ -792,7 +797,8 @@ def test_fdt_long_t_takes_the_codebook_kernels(dev):
     before = _counts()
     got = _grads_of(fast, (images, tokens, pad))
     torch.cuda.synchronize()
-    assert _deltas(before) == ([0, 0, 2, 2, 2, 0, 0], 0, 0)
+    assert _deltas(before) == _moved(codebook_pool_fwd=2, codebook_pool_bwd_dq=2,
+                                     codebook_pool_bwd_dsd=2)
     _assert_paths_agree(got, _grads_of(plain, (images, tokens, pad)))
 
 
@@ -813,7 +819,7 @@ def test_fdt_fp32_knobs_route_to_plain(dev):
     before = _counts()
     got = _grads_of(fast, batch)
     torch.cuda.synchronize()
-    assert _deltas(before) == ([0] * 7, 4, 2)
+    assert _deltas(before) == _moved(attention_route=4, codebook_route=2)
     _assert_paths_agree(got, _grads_of(plain, batch))
 
 
@@ -837,7 +843,7 @@ def test_clip_head_width_32_flash_knob_routes_to_plain(dev):
     before = _counts()
     got = _grads_of(fast, batch)
     torch.cuda.synchronize()
-    assert _deltas(before) == ([0] * 7, 4, 0)
+    assert _deltas(before) == _moved(attention_route=4)
     _assert_paths_agree(got, _grads_of(plain, batch))
 
 
@@ -890,12 +896,14 @@ def test_solver_kernels_and_resume(dev, tmp_path):
     bit (no kernel on the path sums with float atomics)."""
     a, losses_a, counts = _solver_run(tmp_path, "a")
     assert a.device.type == "cuda"
-    assert counts == ([24, 24, 12, 12, 12, 0, 0], 0, 0)
+    assert counts == _moved(tiny_attention_fwd=24, tiny_attention_bwd=24, codebook_pool_fwd=12,
+                            codebook_pool_bwd_dq=12, codebook_pool_bwd_dsd=12)
     assert sorted(losses_a) == [1, 2, 3, 4, 5, 6]
     assert all(torch.isfinite(torch.tensor(v)) for v in losses_a.values())
     ckpt_3 = a.save_path + "/ckpt_3.pth.tar"
     b, losses_b, counts_b = _solver_run(tmp_path, "b", ckpt_path=ckpt_3)
-    assert counts_b == ([12, 12, 6, 6, 6, 0, 0], 0, 0)
+    assert counts_b == _moved(tiny_attention_fwd=12, tiny_attention_bwd=12, codebook_pool_fwd=6,
+                              codebook_pool_bwd_dq=6, codebook_pool_bwd_dsd=6)
     assert losses_b == {s: losses_a[s] for s in (4, 5, 6)}
     for n, p in b.params.items():
         assert torch.equal(p, a.params[n]), n
@@ -963,12 +971,14 @@ def test_solver_from_shards_kernels_and_resume(dev, tmp_path):
              "context_buckets": [12, 20]}
     contexts = []
     a, losses_a, counts = _solver_run(tmp_path, "a", train, contexts)
-    assert counts == ([24, 24, 12, 12, 12, 0, 0], 0, 0)
+    assert counts == _moved(tiny_attention_fwd=24, tiny_attention_bwd=24, codebook_pool_fwd=12,
+                            codebook_pool_bwd_dq=12, codebook_pool_bwd_dsd=12)
     assert sorted(losses_a) == [1, 2, 3, 4, 5, 6] and set(contexts) == {12, 20}, contexts
     assert all(np.isfinite(v) for v in losses_a.values())
     b, losses_b, counts_b = _solver_run(tmp_path, "b", train, ckpt_path=a.save_path
                                         + "/ckpt_3.pth.tar")
-    assert counts_b == ([12, 12, 6, 6, 6, 0, 0], 0, 0)
+    assert counts_b == _moved(tiny_attention_fwd=12, tiny_attention_bwd=12, codebook_pool_fwd=6,
+                              codebook_pool_bwd_dq=6, codebook_pool_bwd_dsd=6)
     assert losses_b == {s: losses_a[s] for s in (4, 5, 6)}
     for n, p in b.params.items():
         assert torch.equal(p, a.params[n]), n
@@ -1020,7 +1030,7 @@ def test_eval_cli_on_the_card(dev, tmp_path, monkeypatch):
     torch.cuda.synchronize()
     n = len(batches)
     assert set(batches) == {"cuda"} and n == (1 + 2) + 5 * (1 + 2 * 1)
-    assert _deltas(before) == ([2 * n, 0, n, 0, 0, 0, 0], 0, 0)
+    assert _deltas(before) == _moved(tiny_attention_fwd=2 * n, codebook_pool_fwd=n)
     assert 0.0 <= zs["metrics"]["acc1"] <= 1.0
     assert len(sugar["metrics"]) == 6
     assert all(0.0 <= v <= 1.0 for v in sugar["metrics"].values())
@@ -1113,7 +1123,10 @@ def test_clip_fdt_vitb16_kernel_routes_match_plain(dev):
     before = _counts()
     got = _grads_of(fast, (images, tokens, pad))
     torch.cuda.synchronize()
-    assert _deltas(before) == ([2, 2, 2, 2, 2, 2, 2], 0, 0)
+    assert _deltas(before) == _moved(tiny_attention_fwd=2, tiny_attention_bwd=2,
+                                     codebook_pool_fwd=2, codebook_pool_bwd_dq=2,
+                                     codebook_pool_bwd_dsd=2, flash_attention_fwd=2,
+                                     flash_attention_bwd=2)
     _assert_paths_agree(got, _grads_of(plain, (images, tokens, pad)), min_grad_cos=0.98)
 
 
@@ -1138,7 +1151,7 @@ def test_return_attn_on_the_card(dev):
             vis = model.visual(images, return_attn=True)
             txt = model.encode_text(tokens, pad, return_attn=True)
             torch.cuda.synchronize()
-            assert _deltas(before) == ([0] * 7, 0, 0)
+            assert _deltas(before) == {}
         s = (res // (16 if res == 224 else 32)) ** 2 + 1
         assert vis["attn_weights"].shape == (2, 3, s, s) and vis["cls_attn"].shape == (2, 3, s)
         assert txt["attn_weights"].shape == (2, 5, 20, 20)
@@ -1296,7 +1309,9 @@ def test_ddp_on_one_card_over_gloo(dev, tmp_path):
     # one DDP step against one process's step on the whole batch
     a, b = got[0]["step"], got[1]["step"]
     assert a["wrapped"] == b["wrapped"] == "DistributedDataParallel"
-    assert a["counts"] == b["counts"] == ([4, 4, 2, 2, 2, 0, 0], 0, 0)
+    assert a["counts"] == b["counts"] == _moved(tiny_attention_fwd=4, tiny_attention_bwd=4,
+                                                codebook_pool_fwd=2, codebook_pool_bwd_dq=2,
+                                                codebook_pool_bwd_dsd=2)
     assert a["loss"] == b["loss"]
     for n in a["params"]:
         np.testing.assert_array_equal(a["params"][n], b["params"][n], err_msg=n)
@@ -1352,7 +1367,7 @@ def _eager_texts(model, tokens, pad, normalize=True, temperature=None):
 
     enc = TorchEncoder(model, batch_size=8, normalize=normalize, sd_temperature=temperature)
     out = enc.encode_texts_tokens(tokens, pad)
-    assert (enc.text_graph_eager, enc.text_graph_captures) == (1, 0)
+    assert (enc.text_graphs.eager, enc.text_graphs.captures) == (1, 0)
     return out
 
 
@@ -1374,8 +1389,8 @@ def test_text_graph_replay_is_the_eager_call(dev, kind, ctx, normalize, rows):
     got = [enc.encode_texts_tokens(tokens, pad) for tokens, pad in calls]
     torch.cuda.synchronize()
     launched = _deltas(before)
-    assert (enc.text_graph_eager, enc.text_graph_captures, enc.text_graph_replays) == (1, 1, 2)
-    assert launched == ([4 * 2, 0, 4 * (kind == "fdt"), 0, 0, 0, 0], 0, 0)
+    assert _graph_counts(enc.text_graphs) == (1, 1, 2)
+    assert launched == _moved(tiny_attention_fwd=4 * 2, codebook_pool_fwd=4 * (kind == "fdt"))
     for (tokens, pad), out in zip(calls, got):
         assert out.shape == (rows, 64)
         assert np.array_equal(out, _eager_texts(model, tokens, pad, normalize))
@@ -1402,8 +1417,8 @@ def test_text_graph_follows_the_weights(dev, change):
         else:
             weight.mul_(2.0)
     new = [enc.encode_texts_tokens(tokens, pad) for _ in range(3)]
-    modes = (enc.text_graph_eager, enc.text_graph_captures, enc.text_graph_replays)
-    assert modes == ((1, 1, 4) if change == "param_in_place" else (2, 2, 2))
+    want_counts = (1, 1, 4) if change == "param_in_place" else (2, 2, 2)
+    assert _graph_counts(enc.text_graphs) == want_counts
     want = _eager_texts(model, tokens, pad, temperature=enc.sd_temperature)
     assert not np.array_equal(want, old[0])
     for out in new:
@@ -1424,7 +1439,7 @@ def test_text_graph_result_outlives_the_next_call(dev):
     kept = first.clone()
     second = enc.text_batch(*b)
     torch.cuda.synchronize()
-    assert enc.text_graph_replays == 2
+    assert enc.text_graphs.replays == 2
     assert torch.equal(first, kept) and not torch.equal(first, second)
 
 
@@ -1635,9 +1650,9 @@ def test_step_graph_replay_is_the_eager_step(dev, kind):
         got.append(step(state_a, batch, 2.0))
         eager = _step_fn(b, kind)
         want.append(eager(state_b, batch, 2.0))
-        assert (eager.graph_eager, eager.graph_captures, eager.graph_replays) == (1, 0, 0)
+        assert _graph_counts(eager.graphs) == (1, 0, 0)
     torch.cuda.synchronize()
-    assert (step.graph_eager, step.graph_captures, step.graph_replays) == (1, 1, 4)
+    assert _graph_counts(step.graphs) == (1, 1, 4)
     for g, w in zip(got, want):
         assert g["lr"] == w["lr"]
         for k in ("loss", "logit_scale", "acc1", "acc5"):
@@ -1687,7 +1702,7 @@ def test_step_graph_recaptures_at_il_events(dev):
             _il_release(a, state_a)
             _il_release(b, state_b)
     torch.cuda.synchronize()
-    assert (step.graph_eager, step.graph_captures, step.graph_replays) == (3, 3, 3)
+    assert _graph_counts(step.graphs) == (3, 3, 3)
     _assert_same_state(a, state_a, b, state_b)
 
 
@@ -1697,9 +1712,7 @@ def test_step_graph_two_steps_share_a_pool(dev):
     one memory pool: each model's six steps equal six eager steps from the
     same state bit for bit, though each replay overwrites what the other
     graph left in the pool."""
-    from iterated_learning_for_vlm_tpu_torch.train.step import _side
-
-    assert _side(dev) is _side(dev)
+    assert graphs._side(dev) is graphs._side(dev)
     (a, state_a), (a2, state_a2) = _step_pair(dev, "fdt")
     (b, state_b), (b2, state_b2) = _step_pair(dev, "clip")
     step_a, step_b = _step_fn(a, "fdt"), _step_fn(b, "clip")
@@ -1711,8 +1724,9 @@ def test_step_graph_two_steps_share_a_pool(dev):
         assert torch.equal(got_b["loss"], want_b["loss"])
     torch.cuda.synchronize()
     for step in (step_a, step_b):
-        assert (step.graph_eager, step.graph_captures, step.graph_replays) == (1, 1, 4)
-    assert len({entry.graph.pool() for entry in _side(dev)[1]}) == 1
+        assert _graph_counts(step.graphs) == (1, 1, 4)
+    gc.collect()  # as a capture does: graphs only a cycle holds leave the live set
+    assert len({entry.graph.pool() for entry in graphs._side(dev)[1]}) == 1
     _assert_same_state(a, state_a, a2, state_a2)
     _assert_same_state(b, state_b, b2, state_b2)
 
@@ -1734,7 +1748,7 @@ def test_step_graph_takes_a_new_pool_when_all_graphs_are_gone(dev):
         got = step(state_b, batch, 2.0)
         want = _step_fn(b2, "clip")(state_b2, batch, 2.0)
         assert torch.equal(got["loss"], want["loss"])
-    assert (step.graph_eager, step.graph_captures, step.graph_replays) == (1, 1, 1)
+    assert _graph_counts(step.graphs) == (1, 1, 1)
     _assert_same_state(b, state_b, b2, state_b2)
 
 
@@ -1744,23 +1758,20 @@ def test_step_graph_replay_advances_the_counters(dev, kind):
     wrapper's ``.launches`` and the routes' counts by the eager step's
     increments: a capture adds what it launches once (at its replay), a
     replay what its capture recorded."""
-    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
-
-    def counts():
-        return _counts()[0] + [wa.window_attention_fwd.launches,
-                               wa.window_attention_bwd.launches] + list(_counts()[1:])
-
     (a, state_a), _ = _step_pair(dev, kind)
     step = _step_fn(a, kind)
     deltas = []
     for batch in _step_batches(dev, kind, 4):
-        before = counts()
+        before = _counts()
         step(state_a, batch, 2.0)
-        deltas.append([x - y for x, y in zip(counts(), before)])
-    assert (step.graph_eager, step.graph_captures, step.graph_replays) == (1, 1, 2)
+        deltas.append(_deltas(before))
+    assert _graph_counts(step.graphs) == (1, 1, 2)
     assert all(d == deltas[0] for d in deltas), deltas
-    k2 = deltas[0][:2]
-    assert k2 == ([4, 4] if kind == "fdt" else [2, 2])  # the text tower's in both
-    assert deltas[0][2:5] == ([2, 2, 2] if kind == "fdt" else [0, 0, 0])
-    assert deltas[0][7:9] == ([0, 0] if kind == "fdt" else [4, 4])
-    assert deltas[0][9:] == [0, 0]
+    k2 = 4 if kind == "fdt" else 2  # the text tower's in both
+    if kind == "fdt":
+        want = _moved(tiny_attention_fwd=k2, tiny_attention_bwd=k2, codebook_pool_fwd=2,
+                      codebook_pool_bwd_dq=2, codebook_pool_bwd_dsd=2)
+    else:
+        want = _moved(tiny_attention_fwd=k2, tiny_attention_bwd=k2, window_attention_fwd=4,
+                      window_attention_bwd=4)
+    assert deltas[0] == want

@@ -204,6 +204,29 @@ def test_spans_share_the_trace_clock(runs):
         assert abs(e["ts"] + e["dur"] - end_us) <= CLOCK_ATOL_US, s["name"]
 
 
+def test_record_function_entry_points_emit_a_user_annotation(tmp_path):
+    """A span enters and exits through ``torch.autograd``'s private
+    ``_record_function_with_args_enter`` / ``_exit``; this fails, naming
+    them, if a torch upgrade drops them or they stop giving the trace a
+    ``user_annotation`` over the stretch they bound."""
+    enter = getattr(torch.autograd, "_record_function_with_args_enter", None)
+    exit_ = getattr(torch.autograd, "_record_function_with_args_exit", None)
+    assert callable(enter) and callable(exit_), "torch.autograd lost the entry points"
+    assert (profiling._rf_enter, profiling._rf_exit) == (enter, exit_)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        handle = enter("rf.entry_point")
+        torch.ones(4).sum()
+        exit_(handle)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    marked = [e for e in events
+              if e.get("cat") == "user_annotation" and e.get("name") == "rf.entry_point"]
+    assert len(marked) == 1 and marked[0]["dur"] > 0
+    inside = [e for e in events if e.get("cat") == "cpu_op" and e.get("name") == "aten::sum"]
+    assert inside and all(marked[0]["ts"] <= e["ts"] <= marked[0]["ts"] + marked[0]["dur"]
+                          for e in inside)
+
+
 def test_ring_drops_the_oldest():
     assert profiling.RING == 2 ** 16
     with profile(activities=[ProfilerActivity.CPU]):
@@ -223,7 +246,7 @@ def test_span_off_is_a_shared_no_op(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("called with no profiler running")
 
-    monkeypatch.setattr(profiling.torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(profiling, "_rf_enter", refuse)
     monkeypatch.setattr(profiling.time, "time_ns", refuse)
     first = profiling.span("x", step=1)
     assert profiling.span("x", step=2) is first

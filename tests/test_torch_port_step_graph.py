@@ -22,6 +22,7 @@ from iterated_learning_for_vlm_tpu_torch.train.checkpoint import (checkpoint_dic
 from iterated_learning_for_vlm_tpu_torch.train.loss import clip_info_nce
 from iterated_learning_for_vlm_tpu_torch.train.step import graph_key, make_train_step
 from iterated_learning_for_vlm_tpu_torch.train.train_state import TrainState
+from torch_port_graph_stub import stub_graphs  # noqa: F401 (fixture)
 
 CTX, VOCAB = 16, 300
 
@@ -150,47 +151,6 @@ def test_tensor_scalar_adamw_is_the_python_scalar_adamw(case):
             assert torch.equal(got_p[n], params[n]) and got_s["count"][n] == state["count"][n]
 
 
-def test_float_lr_call_is_the_python_scalar_adamw():
-    """``adamw_update`` with a float ``lr`` (its own host half) as before."""
-    model = tiny_fdt(1)
-    params = dict(model.named_parameters())
-    trainable = optim.trainable_mask_tree(params)
-    wd = optim.build_wd_tree(params, 0.05, {})
-    got_p = {n: p.detach().clone() for n, p in params.items()}
-    want_p = {n: p.detach().clone() for n, p in params.items()}
-    got_s, want_s = optim.adamw_init(params), optim.adamw_init(params)
-    for k in range(3):
-        grads = real_grads(model, seed=20 + k)
-        python_scalar_adamw(grads, want_s, want_p, lr=3e-4, wd_tree=wd, trainable=trainable)
-        optim.adamw_update(grads, got_s, got_p, lr=3e-4, wd_tree=wd, trainable=trainable)
-    for n in params:
-        assert torch.equal(got_p[n], want_p[n]) and torch.equal(got_s["nu"][n], want_s["nu"][n])
-    assert got_s["count"] == want_s["count"]
-
-
-@pytest.mark.parametrize("call", ["tensor_lr_without_classes", "float_lr_with_classes"])
-def test_adamw_update_refuses_a_mixed_call(call):
-    """A tensor ``lr`` needs its host half's ``classes``, and a float ``lr``
-    runs its own: either mix raises before any count or tensor moves."""
-    model = tiny_fdt(2)
-    params = dict(model.named_parameters())
-    trainable = optim.trainable_mask_tree(params)
-    wd = optim.build_wd_tree(params, 0.05, {})
-    state = optim.adamw_init(params)
-    classes, values = optim.adamw_scalars(state, params, trainable, 3e-4)
-    counts = dict(state["count"])
-    before = {n: p.detach().clone() for n, p in params.items()}
-    grads = real_grads(model, seed=30)
-    if call == "tensor_lr_without_classes":
-        kwargs = {"lr": torch.tensor(values, dtype=torch.float32)}
-    else:
-        kwargs = {"lr": 3e-4, "classes": classes}
-    with pytest.raises(ValueError, match="classes"):
-        optim.adamw_update(grads, state, params, wd_tree=wd, trainable=trainable, **kwargs)
-    assert state["count"] == counts
-    assert all(torch.equal(p, before[n]) for n, p in params.items())
-
-
 def test_counts_stay_host_floats_and_a_checkpoint_round_trips():
     """After three steps the counts are host floats (conv1's still 0); a
     checkpoint restored into a fresh model and state carries every tensor,
@@ -308,12 +268,60 @@ def test_ema_clamp_updates_its_tensors_in_place():
     assert count.item() == ls.numel()
 
 
+def _graph_counts(step):
+    return step.graphs.eager, step.graphs.captures, step.graphs.replays
+
+
 def test_cpu_step_never_captures():
-    """On the CPU every call runs eagerly, spans unchanged: ``graph_eager``
-    counts them all."""
+    """On the CPU every call runs eagerly, spans unchanged: the cache's
+    ``eager`` counts them all."""
     model = tiny_fdt()
     state, step = fresh_state(model), make_step(model)
     for k in range(3):
         metrics = step(state, batch(k), 2.0)
-    assert (step.graph_eager, step.graph_captures, step.graph_replays) == (3, 0, 0)
+    assert _graph_counts(step) == (3, 0, 0)
     assert state.step == 3 and set(metrics) == {"loss", "lr", "logit_scale", "acc1", "acc5"}
+
+
+def test_step_graph_eager_capture_replay(stub_graphs):
+    """Through the CPU stand-in of a graph: a key's first call runs eagerly,
+    its second captures, the rest replay, and the five steps give the
+    losses, parameters and moments of five eager steps (each a fresh step
+    function's first call) bit for bit."""
+    model, plain = tiny_fdt(), tiny_fdt()
+    state, step = fresh_state(model), make_step(model)
+    state_p = fresh_state(plain)
+    modes = []
+    for k in range(5):
+        got, want = step(state, batch(k), 2.0), make_step(plain)(state_p, batch(k), 2.0)
+        modes.append(step.graphs.mode)
+        assert torch.equal(got["loss"], want["loss"]) and got["lr"] == want["lr"], k
+    assert modes == ["eager", "capture", "replay", "replay", "replay"]
+    assert _graph_counts(step) == (1, 1, 3) and len(stub_graphs) == 1
+    for (n, p), q in zip(model.named_parameters(), plain.parameters()):
+        assert torch.equal(p, q), n
+        assert torch.equal(state.opt_state["nu"][n], state_p.opt_state["nu"][n]), n
+    assert state.opt_state["count"] == state_p.opt_state["count"]
+
+
+def test_step_graph_spans(stub_graphs):
+    """``train.step`` holds ``train.forward``, ``train.backward`` and
+    ``train.update`` when it runs eagerly or captures, ``train.replay`` when
+    it replays (the spans ``step_replay_share.train`` reads)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from iterated_learning_for_vlm_tpu_torch.utils import profiling
+
+    model = tiny_fdt()
+    state, step = fresh_state(model), make_step(model)
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for k in range(4):
+            step(state, batch(k), 2.0)
+    spans = profiling.spans()
+    profiling.clear()
+    steps = sorted((s for s in spans if s["name"] == "train.step"), key=lambda s: s["start_ns"])
+    children = [[c["name"] for c in sorted((c for c in spans if c["parent"] == s["id"]),
+                                            key=lambda c: c["start_ns"])] for s in steps]
+    eager = ["train.forward", "train.backward", "train.update"]
+    assert children == [eager, eager, ["train.replay"], ["train.replay"]]

@@ -216,7 +216,9 @@ def test_adamw_update_matches_jax(jax_params):
                  for n, a in bridged(grads_j).items()}
         p_j, state_j = update_j(grads_j, state_j, p_j, lr=jnp.float32(lr), wd_tree=wd_j,
                                 trainable=trainable_j)
-        optim.adamw_update(grads, state, params, lr=lr, wd_tree=wd, trainable=trainable)
+        classes, values = optim.adamw_scalars(state, params, trainable, lr)
+        optim.adamw_update(grads, state, params, lr=torch.tensor(values, dtype=torch.float32),
+                           classes=classes, wd_tree=wd, trainable=trainable)
     want_p, want = bridged(p_j), _port_state(state_j)
     for name, p in params.items():
         np.testing.assert_allclose(_np(p), want_p[name], rtol=1e-6, atol=3e-8, err_msg=name)
