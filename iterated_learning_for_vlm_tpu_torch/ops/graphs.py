@@ -24,6 +24,7 @@ cache takes back what a capture counted and adds it again at each replay.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import weakref
 from typing import Callable, Dict, Hashable, Optional
@@ -69,6 +70,18 @@ def _side(device: torch.device) -> tuple:
     return _SIDE[index]
 
 
+@contextlib.contextmanager
+def side_stream(device: torch.device):
+    """Run the block on the side stream of ``device``'s graphs, after the
+    current stream's work so far; the current stream's later work waits for
+    the block's."""
+    current, side = torch.cuda.current_stream(device), _side(device)[0]
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        yield side
+    current.wait_stream(side)
+
+
 def _live_pool(graphs) -> Optional[tuple]:
     """The memory pool of a live graph in ``graphs``, or None for a new one.
     Once a pool's graphs are all gone the allocator frees it, and a capture
@@ -96,11 +109,9 @@ class Graph:
     def warm(fn: Callable[[Tensors], Tensors], inputs: Tensors) -> Tensors:
         """``fn(inputs)`` eagerly on the side stream, the capture's warm-up."""
         device = next(iter(inputs.values())).device
-        current, side = torch.cuda.current_stream(device), _side(device)[0]
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
+        with side_stream(device):
             out = fn(inputs)
-        current.wait_stream(side)
+        current = torch.cuda.current_stream(device)
         for v in out.values():
             v.record_stream(current)
         return out

@@ -3,10 +3,11 @@
 Counterpart of the ``data`` axis of ``iterated_learning_for_vlm_tpu/parallel/mesh.py``.
 JAX runs one SPMD program over a device mesh; the port runs one process per
 rank in a ``torch.distributed`` process group, each with its own device and
-its own rows of the global batch, and ``DistributedDataParallel`` averages
-the gradients (``train/solver.py``). The tensor-parallel ``model`` axis
-(JAX ``parallel/sharding_rules.py``) is not ported (ROADMAP.md Queue 1 item
-5, tensor parallelism).
+its own rows of the global batch, and the train step averages the
+gradients (``train/step.py``; the Solver's ``DistributedDataParallel``
+wrapper broadcasts rank 0's parameters once). The tensor-parallel
+``model`` axis (JAX ``parallel/sharding_rules.py``) is not ported
+(ROADMAP.md Queue 1 item 5, tensor parallelism).
 
 A group is set up once per process by :func:`init_data_parallel`, from
 torchrun's environment (``python -m torch.distributed.run``: ``RANK``,

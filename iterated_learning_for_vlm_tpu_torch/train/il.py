@@ -28,7 +28,7 @@ bit-equal to the snapshot.
 In a process group every rank draws the same values from the same keys,
 so the ranks' parameters stay equal through every reset, snapshot and hold
 with no broadcast (``DistributedDataParallel`` broadcasts only when it is
-built, and averages only gradients).
+built, and the step averages only gradients).
 
 The controller updates the model's parameters and the state in place and
 returns the state, so it is used as in JAX: ``state = il.on_step(state, step)``

@@ -47,22 +47,24 @@ class AllGather(torch.autograd.Function):
     """``[b, D]`` on every rank of ``group`` -> ``[W * b, D]``, rank order, with
     a gradient (the reference's ``AllGather``, ``clip.py:22-42``).
 
-    Forward: ``all_gather``. Backward: ``all_reduce(SUM)`` of the incoming
+    Forward: one ``all_gather_into_tensor`` into the ``[W * b, D]`` output
+    (one collective, no copy). Backward: ``all_reduce(SUM)`` of the incoming
     gradient, then this rank's ``b`` rows: the transpose of the gather, since
     every rank's loss reads every rank's rows (JAX ``clip_info_nce_sharded``:
     "allreduce + slice == transpose of all_gather"). Written here, not taken
     from ``torch.distributed.nn``, whose backward off NCCL needs
     ``all_to_all``, which Gloo lacks. Gloo takes CUDA tensors for both
-    collectives, staging them through the host."""
+    collectives, staging them through the host; over NCCL both run inside
+    the train step's CUDA graph (``train/step.py``)."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, group=None) -> torch.Tensor:
         ctx.group = group
         ctx.rank = dist.get_rank(group)
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, x, group=group)
-        return torch.cat(parts)
+        out = x.new_empty((dist.get_world_size(group) * x.shape[0],) + x.shape[1:])
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
@@ -82,8 +84,10 @@ def clip_info_nce_sharded(image_embed: torch.Tensor, text_embed: torch.Tensor,
     Logits are this rank's rows against every rank's columns, gathered by
     :class:`AllGather`; the labels are ``rank * b + arange(b)``. The first
     ``loss`` is this rank's mean, the one to call ``backward()`` on. Under
-    ``DistributedDataParallel``, which averages the parameter gradients over
-    the W ranks, its gradient is exactly that of the global-mean loss: each
+    data parallelism, where the train step averages the parameter gradients
+    over the W ranks (``train/step.py`` ``GradientAverage``, the average
+    ``DistributedDataParallel`` takes), its gradient is exactly that of the
+    global-mean loss: each
     rank's backward sums, through the gather, every rank's loss's gradient
     on its own rows, so the average is
     (1/W) Σ_r Σ_s ∂L_s/∂e_r · ∂e_r/∂θ = ∂((1/W) Σ_s L_s)/∂θ.

@@ -21,7 +21,8 @@ classification) score the model through a ``TorchEncoder`` as JAX's do.
 
 Data parallel: in a process group (``parallel/mesh.py:init_data_parallel``,
 one process per rank) the Solver trains the model wrapped in
-``DistributedDataParallel`` with the global-batch InfoNCE, each rank on its
+``DistributedDataParallel`` (the step averages the gradients itself,
+``train/step.py``) with the global-batch InfoNCE, each rank on its
 own rows (the loader's rank split; ``batch_size`` is a rank's), the ranks
 agreeing on each step's context bucket (``context_buckets_sync``). Every
 rank holds the same parameters after every step: the same initial draw,
@@ -37,6 +38,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import itertools
 import os
 import time
@@ -44,7 +46,6 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
-from torch.nn.parallel import DistributedDataParallel
 
 from ..data.pipeline import (caption_lengths, get_wds_dataset, prefetch_to_device,
                              synced_bucket_batches)
@@ -62,7 +63,7 @@ from .checkpoint import (find_last_checkpoint, load_checkpoint, modify_state,
 from .il import ILController, ResetConfig
 from .optim import adamw_init, build_wd_tree, trainable_mask_tree
 from .schedule import scheduler_entry
-from .step import make_eval_step, make_train_step
+from .step import make_eval_step, make_train_step, wrap_data_parallel
 from .train_state import TrainState
 
 
@@ -144,10 +145,10 @@ class Solver:
 
         self._build_model()
         self._build_optimizer()
-        # in a group the step runs through DDP; it broadcasts rank 0's
-        # parameters once, here (every rank drew the same ones)
-        self.train_model = (DistributedDataParallel(self.model, static_graph=True)
-                            if initialized() else self.model)
+        # in a group the step takes the DDP wrapper, which broadcasts rank
+        # 0's parameters once, here (every rank drew the same ones); the step
+        # averages the gradients itself (train/step.py)
+        self.train_model = wrap_data_parallel(self.model) if initialized() else self.model
         self._build_data()
         self._build_lr_scheduler()
         self._build_il()
@@ -261,6 +262,7 @@ class Solver:
             grad_clip_value=float(gc.get("value", 0.0) or 0.0),
             grad_clip_max_value=float(gc.get("max_value", 0.0) or 0.0),
             lipreg_lambda=self.lipreg_lambda, **self._adam_kw)
+        self.step_graphs = self.train_step.graphs  # a caller may wrap train_step
         self.eval_step = make_eval_step(self.model, is_fdt=self.is_fdt)
 
     def _build_il(self):
@@ -332,6 +334,11 @@ class Solver:
             state = self._train()
         finally:
             wait_for_saves()
+            # the step's graphs end with the run: their pool is memory, and a
+            # live graph of NCCL's collectives keeps the group from being
+            # destroyed
+            self.step_graphs.clear()
+            gc.collect()
         # rank 0's last checkpoint is whole before any rank goes on to read it
         barrier()
         return state

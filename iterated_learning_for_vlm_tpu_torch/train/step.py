@@ -19,21 +19,34 @@ first: ``lr``, the AdamW counts and their bias corrections
 (``optim.adamw_scalars``), copied to the device in one transfer from pinned
 memory, from which the device's part reads them.
 
-On a CUDA device, unless the model is a ``DistributedDataParallel`` wrapper,
-the device's part replays through ``step.graphs``, a ``GraphCache``
-(``ops/graphs.py``), one graph per :func:`graph_key`. What a replay reads
-before it writes (parameters, moments, the scalars, the EMA tensors, the
-snapshot, the missing gradients' zeros a key's eager call made) lives
-outside the graphs' pool; after a replay each ``.grad`` is a buffer of the
-graph. On the CPU, and under DDP, every call runs eagerly.
+On a CUDA device the device's part replays through ``step.graphs``, a
+``GraphCache`` (``ops/graphs.py``), one graph per :func:`graph_key`. What a
+replay reads before it writes (parameters, moments, the scalars, the EMA
+tensors, the snapshot, the missing gradients' zeros a key's eager call
+made) lives outside the graphs' pool; after a replay on one card each
+``.grad`` is a buffer of the graph. On the CPU every call runs eagerly.
 
 Data parallel: given a ``DistributedDataParallel`` wrapper, the step runs
-the forward through it (DDP averages the gradients over the ranks during
-the backward) and the InfoNCE over the global batch,
-``clip_info_nce_sharded``; every rank then takes the same update. The
-parameters are read from the wrapped module, so their names (the weight
-decay tree, ``state.trainable``, the checkpoint keys) carry no ``module.``
-prefix.
+the forward through the wrapped module, the InfoNCE over the global batch
+(``clip_info_nce_sharded``, which gathers every rank's embeddings), and
+then averages the gradients over the ranks itself, as DDP's reducer would:
+each ``.grad`` that the backward reaches on some rank is a view of one flat
+buffer (:class:`GradientAverage`, made at the first step, outside any
+graph's pool), zeroed at the start of a step so that the backward
+accumulates into it, then summed over the ranks by ``all_reduce`` in
+buckets of the wrapper's ``bucket_bytes_cap`` and divided by the world
+size. DDP's own reducer stays idle (it acts only after its own forward),
+so the gradients are reduced once a step; the wrapper
+(:func:`wrap_data_parallel`) only broadcast rank 0's parameters when it
+was built. Every rank then takes the same update. The parameters are read
+from the wrapped module, so their names (the weight decay tree,
+``state.trainable``, the checkpoint keys) carry no ``module.`` prefix.
+Over NCCL the whole step, its collectives included, replays as on one
+card (the NCCL communicator exists from the key's eager call); Gloo stages
+CUDA tensors through the host, which no graph holds, so a Gloo group runs
+every step eagerly (:func:`graphs_hold_collectives`). ``Solver.train()``
+releases the step's graphs when it ends: NCCL cannot destroy a
+communicator whose collectives a live graph holds.
 
 Under a running ``torch.profiler`` the step opens the span ``train.step``
 (attrs ``step``, ``ctx``), over ``train.forward`` (the model and the loss),
@@ -47,10 +60,10 @@ import contextlib
 from typing import Any, Callable, Dict, Mapping
 
 import torch
-
+import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
-from ..ops.graphs import GraphCache
+from ..ops.graphs import GraphCache, side_stream
 from ..utils.profiling import span
 from .loss import clip_info_nce, clip_info_nce_sharded
 from .optim import adamw_scalars, adamw_update, clamp_logit_scale, clip_grads
@@ -74,6 +87,85 @@ def graph_key(state: TrainState, inputs: Mapping[str, torch.Tensor], sd_temperat
             id(state.opt_state), state.ema_buffer.data_ptr(), state.ema_clip_count.data_ptr())
 
 
+def graphs_hold_collectives(group=None) -> bool:
+    """Whether a CUDA graph captures the collectives of ``group`` (None: the
+    default group): NCCL's run on the card's streams, Gloo's stage CUDA
+    tensors through the host."""
+    return dist.get_backend(group) == "nccl"
+
+
+def wrap_data_parallel(model: torch.nn.Module) -> DistributedDataParallel:
+    """``model`` in ``DistributedDataParallel`` (``static_graph``: some FDT
+    leaves get no gradient), which broadcasts rank 0's parameters, for
+    :func:`make_train_step`. Where the step will capture (a CUDA device, an
+    NCCL group) it is built on the graphs' side stream (``ops/graphs.py``):
+    DDP keeps each parameter's ``AccumulateGrad`` node, which runs on the
+    stream it was made on, and a node on the default stream would tie a
+    captured backward to that stream, which voids the capture."""
+    device = next(model.parameters()).device
+    captures = device.type == "cuda" and graphs_hold_collectives()
+    with side_stream(device) if captures else contextlib.nullcontext():
+        return DistributedDataParallel(model, static_graph=True)
+
+
+class GradientAverage:
+    """The data-parallel step's gradients, averaged over the ranks of
+    ``group``: views of one flat float32 buffer (the parameters' dtype),
+    summed by ``all_reduce`` in buckets of ``bucket_bytes`` and divided by
+    the world size.
+
+    The first :meth:`reduce` makes the buffer: every parameter that the
+    backward reached on some rank (the ranks agree by one ``all_reduce`` of
+    flags) gets a view of it as its ``.grad``, in the parameters' order; the
+    rest (the frozen ``conv1``, leaves the forward never reads) keep
+    ``None``, on every rank. From then on :meth:`zero` zeroes the buffer and
+    binds the views before the backward, which accumulates into them in
+    place; so the buffer never moves, and a graph reads it from outside its
+    pool."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor], group, bucket_bytes: int):
+        self.params, self.group, self.bucket_bytes = params, group, bucket_bytes
+        self.buffer = None
+        self.buckets: tuple = ()
+        self.views: Dict[str, torch.Tensor] = {}
+
+    def zero(self) -> None:
+        if self.buffer is not None:
+            self.buffer.zero_()
+        for n, p in self.params.items():
+            p.grad = self.views.get(n)
+
+    def reduce(self) -> None:
+        if self.buffer is None:
+            self._make_buffer()
+        for n, p in self.params.items():
+            if p.grad is not self.views.get(n):
+                raise RuntimeError(f"the backward left {n}'s gradient outside the buffer "
+                                   "that the ranks average")
+        for bucket in self.buckets:
+            dist.all_reduce(bucket, group=self.group)
+        self.buffer.div_(dist.get_world_size(self.group))
+
+    def _make_buffer(self) -> None:
+        params = self.params
+        device = next(iter(params.values())).device
+        reached = torch.tensor([p.grad is not None for p in params.values()],
+                               dtype=torch.float32, device=device)
+        dist.all_reduce(reached, group=self.group)
+        names = [n for n, r in zip(params, reached.tolist()) if r > 0]
+        self.buffer = torch.zeros(sum(params[n].numel() for n in names), dtype=torch.float32,
+                                  device=device)
+        offset = 0
+        for n in names:
+            p = params[n]
+            view = self.buffer[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+            if p.grad is not None:
+                view.copy_(p.grad)
+            p.grad = self.views[n] = view
+        self.buckets = self.buffer.split(max(1, self.bucket_bytes // self.buffer.element_size()))
+
+
 def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
                     wd_tree: Mapping[str, float], *, is_fdt: bool,
                     grad_clip_type: str = "logit_scale_param_value",
@@ -95,7 +187,11 @@ def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
     if spectral_norm or lipreg_lambda > 0.0:
         raise NotImplementedError("spectral_norm and lipreg are not ported")
     data_parallel = isinstance(model, DistributedDataParallel)
-    params = dict((model.module if data_parallel else model).named_parameters())
+    net = model.module if data_parallel else model
+    params = dict(net.named_parameters())
+    average = (GradientAverage(params, group, model.bucket_bytes_cap) if data_parallel
+               else None)
+    graphed = not data_parallel or graphs_hold_collectives(group)
     names = tuple(params)
     zeros: Dict[str, torch.Tensor] = {}  # the missing gradients' zeros, by name
     graphs = GraphCache()
@@ -118,7 +214,7 @@ def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
                 return _device_step(state, inputs, sd_temperature, classes, scalars)
 
             temperature = sd_temperature if is_fdt else None
-            key = None if data_parallel else graph_key(state, inputs, temperature, classes)
+            key = graph_key(state, inputs, temperature, classes) if graphed else None
             with span("train.replay") if graphs.captured(key) else contextlib.nullcontext():
                 out = graphs(run, inputs, key, held=(state.opt_state, state.stored_codebook,
                                                      state.ema_buffer, state.ema_clip_count))
@@ -127,11 +223,14 @@ def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
 
     def _device_step(state, inputs, sd_temperature, classes, scalars):
         """The device's part of a step: what a graph captures."""
-        for p in params.values():
-            p.grad = None
+        if average is None:
+            for p in params.values():
+                p.grad = None
+        else:
+            average.zero()
         kwargs = {"sd_temperature": sd_temperature} if is_fdt else {}
         with span("train.forward"):
-            out = model(inputs["image"], inputs["tokens"], inputs.get("pad_mask"), **kwargs)
+            out = net(inputs["image"], inputs["tokens"], inputs.get("pad_mask"), **kwargs)
             if data_parallel:
                 loss, metrics = clip_info_nce_sharded(out["image_embed"], out["text_embed"],
                                                       out["logit_scale"], group=group,
@@ -144,7 +243,9 @@ def make_train_step(model: torch.nn.Module, schedule: Callable[[int], float],
             if aux is not None:
                 loss = loss + MOE_AUX_WEIGHT * aux
         with span("train.backward"):
-            loss.backward()  # under DDP this rank's loss; DDP averages the gradients
+            loss.backward()  # under DDP this rank's loss
+            if average is not None:
+                average.reduce()
         if data_parallel:
             loss = metrics.pop("loss")
             if aux is not None:  # this rank's own term beside the ranks' mean InfoNCE

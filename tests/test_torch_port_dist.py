@@ -46,6 +46,7 @@ from iterated_learning_for_vlm_tpu_torch.eval import cli as pcli
 from iterated_learning_for_vlm_tpu_torch.eval.model_loader import load_eval_encoder
 from iterated_learning_for_vlm_tpu_torch.parallel import mesh
 from iterated_learning_for_vlm_tpu_torch.tools.make_train_shards import write_shards
+from iterated_learning_for_vlm_tpu_torch.train.checkpoint import restore_checkpoint
 from iterated_learning_for_vlm_tpu_torch.train.solver import Solver, fdt_temperature
 from iterated_learning_for_vlm_tpu_torch.utils.config import Config, load_config
 import test_torch_port_dist_ranks as ranks
@@ -247,6 +248,70 @@ def test_ddp_step_matches_one_process(cluster, name, tmp_path):
     assert worst["grad"] <= GRAD_RTOL
     assert worst["param"] <= 1e-5
     assert worst["param_at_noise"] <= 2 * lr
+
+
+@pytest.mark.parametrize("name", ["clip_fdt", "clip"])
+def test_ddp_step_replays_the_eager_step(cluster, name, tmp_path):
+    """Three DDP steps through the graph key's path (eager, capture, replay;
+    on the CPU a stand-in of the graph, with the group's collectives taken
+    as a graph holds NCCL's) equal three eager DDP steps bit for bit: every
+    loss, accuracy and gradient, and the parameters after them, on each
+    rank; the ranks bit for bit. Each step reduces the gradients once: it
+    never enters ``DistributedDataParallel.forward`` (whose reducer would
+    average them again), and issues four ``all_reduce`` calls (the
+    metrics', the two gathers' backward, and one bucket of every gradient
+    element), plus, at the first step, the ranks' agreement on which
+    parameters get one. Against one process's step on the whole batch from
+    each step's pre-step state (rank 0's checkpoint; free-running, the
+    FDT loss drifts ~1e-5 from one process's by the second step, as AdamW
+    follows gradients at rounding level): each loss within 1e-6 and each
+    step's gradients within ``GRAD_RTOL`` of their tensor's largest, as one
+    step is held above."""
+    cfg = _config(name)
+    data = SyntheticClipData(batch_size=8, image_size=32, context_length=16)
+    batches = [data.batch(k) for k in range(3)]
+    graphed = cluster.run("ddp_steps", config=cfg, batches=batches,
+                          out=str(tmp_path / "graphed"), graphed=True)
+    eager = cluster.run("ddp_steps", config=cfg, batches=batches,
+                        out=str(tmp_path / "eager"), graphed=False)
+    assert [r["modes"] for r in graphed] == [(1, 1, 1)] * WORLD
+    assert [r["modes"] for r in eager] == [(3, 0, 0)] * WORLD
+    for g, e in zip(graphed, eager):
+        assert g["wrapped"] == "DistributedDataParallel"
+        assert (g["loss"], g["acc1"]) == (e["loss"], e["acc1"])
+        for k in range(3):
+            for n, grad in e["grads"][k].items():
+                if grad is None:
+                    assert g["grads"][k][n] is None, n
+                else:
+                    np.testing.assert_array_equal(g["grads"][k][n], grad, err_msg=n)
+        for n, p in e["params"].items():
+            np.testing.assert_array_equal(g["params"][n], p, err_msg=n)
+            np.testing.assert_array_equal(graphed[1]["params"][n], p, err_msg=n)
+        assert g["forward_entries"] == 0
+        n_grad = sum(x.size for x in e["grads"][0].values() if x is not None)
+        for k, sizes in enumerate(g["reduces"]):
+            assert sizes[0] == 3 and sizes[1] == sizes[2], sizes
+            assert sizes[3:] == ([len(g["params"])] if k == 0 else []) + [n_grad], sizes
+    one = Solver(Config(_config(name)), output_path=str(tmp_path / "one"), exp_name="one",
+                 batch_size=8, device="cpu")
+    worst = 0.0
+    for k, batch in enumerate(batches, start=1):
+        restore_checkpoint(str(tmp_path / "graphed" / f"pre{k}.pth"), one.model, one.state)
+        temperature = fdt_temperature(k, cfg.get("t_decay"), 100.0) if one.is_fdt else 0.0
+        metrics = one.train_step(one.state, {key: torch.from_numpy(v) for key, v in batch.items()},
+                                 temperature)
+        assert graphed[0]["loss"][k - 1] == pytest.approx(metrics["loss"].item(), abs=ATOL), k
+        for n, p in one.params.items():
+            g = graphed[0]["grads"][k - 1][n]
+            assert (g is None) == (p.grad is None), n
+            if g is not None:
+                g_one = p.grad.numpy()
+                err = float(np.abs(g - g_one).max() / max(float(np.abs(g_one).max()), 1e-30))
+                worst = max(worst, err)
+    print(f"{name}: the gradients of the three steps within {worst:.3e} of one process's "
+          "from the same pre-step state")
+    assert worst <= GRAD_RTOL
 
 
 # -- 4. Solver.train() on two ranks: synced buckets, an IL reset, rank-0 writes, resume ------

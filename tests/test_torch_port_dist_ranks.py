@@ -105,6 +105,62 @@ def ddp_step(config, batch, out):
                       for n, p in s.params.items()}}
 
 
+def ddp_steps(config, batches, out, graphed):
+    """The Solver's step under DDP on this rank's rows of each of
+    ``batches``, one step a batch. ``graphed``: through the graph key's path
+    (eager, capture, replays), with the CPU stand-in of a graph
+    (``torch_port_graph_stub.StubGraph``) and the group's collectives taken
+    as a graph holds NCCL's; else every step eagerly, as over Gloo. Rank 0
+    writes each step's pre-step checkpoint to ``out/pre<k>.pth``. Spies
+    count each step's ``all_reduce`` calls and their elements, and the
+    entries of ``DistributedDataParallel.forward``."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from iterated_learning_for_vlm_tpu_torch.ops import graphs
+    from iterated_learning_for_vlm_tpu_torch.train import step as step_mod
+    from torch_port_graph_stub import StubGraph
+
+    reduces, entries = [], []
+    all_reduce, forward = dist.all_reduce, DistributedDataParallel.forward
+    saved = graphs.Graph, step_mod.graphs_hold_collectives
+
+    def counted_all_reduce(tensor, *a, **k):
+        reduces[-1].append(tensor.numel())
+        return all_reduce(tensor, *a, **k)
+
+    def counted_forward(self, *a, **k):
+        entries.append(1)
+        return forward(self, *a, **k)
+
+    dist.all_reduce, DistributedDataParallel.forward = counted_all_reduce, counted_forward
+    if graphed:
+        graphs.Graph, step_mod.graphs_hold_collectives = StubGraph, lambda group=None: True
+    try:
+        s = Solver(Config(config), output_path=out, exp_name="ddp", device="cpu")
+        rec = {"loss": [], "acc1": [], "grads": []}
+        for k, batch in enumerate(batches, start=1):
+            if mesh.is_main():
+                torch.save(ckpt.checkpoint_dict(s.model, s.state, s.state.step),
+                           os.path.join(out, f"pre{k}.pth"))
+            reduces.append([])
+            temperature = fdt_temperature(k, config.get("t_decay"), 100.0) if s.is_fdt else 0.0
+            metrics = s.train_step(s.state, {key: rows(v) for key, v in batch.items()},
+                                   temperature)
+            rec["loss"].append(metrics["loss"].item())
+            rec["acc1"].append(metrics["acc1"].item())
+            rec["grads"].append({n: None if p.grad is None else p.grad.numpy().copy()
+                                 for n, p in s.params.items()})
+    finally:
+        dist.all_reduce, DistributedDataParallel.forward = all_reduce, forward
+        graphs.Graph, step_mod.graphs_hold_collectives = saved
+    graphs_ = s.train_step.graphs
+    rec.update(params={n: p.detach().numpy().copy() for n, p in s.params.items()},
+               modes=(graphs_.eager, graphs_.captures, graphs_.replays),
+               reduces=reduces, forward_entries=len(entries),
+               wrapped=type(s.train_model).__name__)
+    return rec
+
+
 def solver_train(config, out, ckpt_path=None, digest_after=()):
     """``Solver.train()`` with spies: each step's context, this rank's longest
     caption and the loss; parameter digests after the IL step(s)

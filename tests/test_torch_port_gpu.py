@@ -1245,6 +1245,10 @@ def _gloo_rank(rank, port, conn, embeds, batch, config, out):
                        "params": {n: p.detach().float().cpu().numpy() for n, p in s.params.items()},
                        "grads": {n: None if p.grad is None else p.grad.float().cpu().numpy()
                                  for n, p in s.params.items()}}
+        for _ in range(2):  # a Gloo group's steps stay eager
+            s.train_step(s.state, mine, 2.0)
+        g = s.train_step.graphs
+        res["step"]["graphs"] = (g.eager, g.captures, g.replays)
         conn.send(("ok", res))
         dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 — reported to the test, which fails
@@ -1260,7 +1264,9 @@ def test_ddp_on_one_card_over_gloo(dev, tmp_path):
     of a fixed batch of 16: both ranks launch K2-fwd/bwd 4 times and K1-fwd,
     dq and dsd twice with no plain route, end bit for bit equal, and their
     loss is within 2e-3 relative and every averaged gradient at cosine >=
-    0.98 (the bf16 bound) of one process's step on all 16."""
+    0.98 (the bf16 bound) of one process's step on all 16. Gloo stages the
+    collectives through the host, which no CUDA graph holds: that step and
+    two more all run eagerly."""
     import multiprocessing
     import socket
 
@@ -1312,6 +1318,7 @@ def test_ddp_on_one_card_over_gloo(dev, tmp_path):
     assert a["counts"] == b["counts"] == _moved(tiny_attention_fwd=4, tiny_attention_bwd=4,
                                                 codebook_pool_fwd=2, codebook_pool_bwd_dq=2,
                                                 codebook_pool_bwd_dsd=2)
+    assert a["graphs"] == b["graphs"] == (3, 0, 0)
     assert a["loss"] == b["loss"]
     for n in a["params"]:
         np.testing.assert_array_equal(a["params"][n], b["params"][n], err_msg=n)
@@ -1775,3 +1782,277 @@ def test_step_graph_replay_advances_the_counters(dev, kind):
         want = _moved(tiny_attention_fwd=k2, tiny_attention_bwd=k2, window_attention_fwd=4,
                       window_attention_bwd=4)
     assert deltas[0] == want
+
+
+# -- the DDP step as a CUDA graph: two NCCL ranks, a card each -----------------------
+DDP_GRAPH_STEPS = 6
+
+
+def _ddp_step_fn(wrapper, kind="fdt"):
+    """``_step_fn`` for a ``DistributedDataParallel`` wrapper (its module's
+    parameter names)."""
+    from iterated_learning_for_vlm_tpu_torch.train import optim
+    from iterated_learning_for_vlm_tpu_torch.train.step import make_train_step
+
+    params = dict(wrapper.module.named_parameters())
+    return make_train_step(wrapper, lambda s: 1e-3 * s / (s + 2.0),
+                           optim.build_wd_tree(params, 0.1, {}), is_fdt=kind == "fdt",
+                           grad_clip_type="logit_scale_param_value", grad_clip_value=3.0,
+                           grad_clip_max_value=6.0)
+
+
+def _ddp_graph_job(il):
+    """On this rank (card ``rank``): two copies of the small CLIP-FDT, each in
+    DDP as the Solver wraps it, take the same steps on this rank's batches
+    (other rows on each rank): ``a`` through one step function (eager,
+    capture, replays), ``b`` each step through a fresh step function, whose
+    first call runs eagerly. ``il``: 9 steps, an IL reset after step 3 and a
+    release with a new temperature after step 6; else ``DDP_GRAPH_STEPS``
+    steps, then one more replay under a CUDA profiler. Every metric, and in
+    the end every parameter, gradient, moment and count, must agree bit for
+    bit. Returns the graph counts, each step's counter increments, a digest
+    of the parameters, the profiled replay's NCCL kernels and the warnings
+    of an ``AccumulateGrad`` node on another stream than the backward's."""
+    import hashlib
+    import warnings
+
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from iterated_learning_for_vlm_tpu_torch.train.step import wrap_data_parallel
+
+    rank = dist.get_rank()
+    dev = torch.device("cuda", rank)
+    (a, state_a), (b, state_b) = _step_pair(dev, "fdt")
+    step = _ddp_step_fn(wrap_data_parallel(a))
+    wrapped_b = wrap_data_parallel(b)
+    n = 9 if il else DDP_GRAPH_STEPS
+    batches = _step_batches(dev, "fdt", 2 * n)[rank::2]
+    deltas = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _ddp_steps(step, wrapped_b, a, state_a, b, state_b, batches, il, deltas)
+    torch.cuda.synchronize()
+    _assert_same_state(a, state_a, b, state_b)
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        assert (p.grad is None) == (q.grad is None), name
+        assert p.grad is None or torch.equal(p.grad, q.grad), name
+    out = {"modes": _graph_counts(step.graphs), "deltas": deltas,
+           "stream_warnings": [str(w.message)[:200] for w in caught
+                               if "AccumulateGrad" in str(w.message)]}
+    if not il:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(state_a, batches[-1], 2.0)
+            torch.cuda.synchronize()
+        out["profiled_mode"] = step.graphs.mode
+        out["nccl_kernels"] = sorted({e.key for e in prof.key_averages()
+                                      if "nccl" in e.key.lower()})
+    h = hashlib.sha256()
+    for p in a.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    out["digest"] = h.hexdigest()
+    return out
+
+
+def _ddp_steps(step, wrapped_b, a, state_a, b, state_b, batches, il, deltas):
+    """The steps of :func:`_ddp_graph_job`, each held against an eager step."""
+    for k, batch in enumerate(batches):
+        temperature = 1.0 if il and k >= 6 else 2.0
+        before = _counts()
+        got = step(state_a, batch, temperature)
+        deltas.append(_deltas(before))
+        eager = _ddp_step_fn(wrapped_b)
+        want = eager(state_b, batch, temperature)
+        assert _graph_counts(eager.graphs) == (1, 0, 0)
+        assert got["lr"] == want["lr"]
+        for key in ("loss", "logit_scale", "acc1", "acc5"):
+            assert torch.equal(got[key], want[key]), (k, key)
+        if il and k == 2:
+            _il_reset(a, state_a, 3)
+            _il_reset(b, state_b, 3)
+        if il and k == 5:
+            _il_release(a, state_a)
+            _il_release(b, state_b)
+
+
+_KEPT = []  # what a job leaves alive until its process ends
+
+
+def _ddp_solver_job(out):
+    """``Solver.train()`` of the small CLIP-FDT over the group: 8 steps of one
+    key (no IL event, no temperature decay). The Solver stays alive while
+    the group is destroyed, as ``cli_entry`` does; returns the step's graph
+    counts."""
+    import torch.distributed as dist
+
+    from iterated_learning_for_vlm_tpu_torch.train.solver import Solver
+    from iterated_learning_for_vlm_tpu_torch.utils.config import Config
+
+    config = _solver_cfg({"synthetic": True, "batch_size": 8, "num_batches": 8})
+    config["lr_scheduler"]["kwargs"]["max_iter"] = 8
+    config["reset"]["enable"] = False
+    config["saver"]["save_freq"] = 0
+    del config["t_decay"]
+    # the card by index: the Solver's prefetch thread starts on card 0
+    s = Solver(Config(config), output_path=out, exp_name="nccl",
+               device=torch.device("cuda", dist.get_rank()))
+    s.train()
+    _KEPT.append(s)
+    return {"modes": _graph_counts(s.step_graphs), "wrapped": type(s.train_model).__name__}
+
+
+def _nccl_serve(rank, port, conn):
+    """Rank ``rank`` of a two-rank NCCL group on cards 0 and 1: runs the jobs
+    sent over ``conn`` (``(name, kwargs)`` in, ``("ok", result)`` or
+    ``("error", traceback)`` out) until ``None``."""
+    import os
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from iterated_learning_for_vlm_tpu_torch.parallel import mesh
+
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": "2", "LOCAL_RANK": str(rank),
+                       "LOCAL_WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(port)})
+    try:
+        mesh.init_data_parallel("nccl", timeout=timedelta(seconds=120))
+    except BaseException:  # noqa: BLE001 — reported to the test, which fails
+        conn.send(("error", traceback.format_exc()))
+        return
+    try:
+        while True:
+            job = conn.recv()
+            if job is None:
+                return
+            name, kwargs = job
+            try:
+                conn.send(("ok", globals()[name](**kwargs)))
+            except BaseException:  # noqa: BLE001 — reported to the test, which fails
+                conn.send(("error", traceback.format_exc()))
+            gc.collect()  # what a job left to cycles goes before the group does
+    finally:
+        dist.destroy_process_group()
+
+
+def _answers(conns, timeout_s):
+    """Each rank's answer to one job, in rank order; fails at the first error
+    any rank reports (its peers may be waiting in a collective for it)."""
+    import time
+    from multiprocessing.connection import wait
+
+    pending, answers = dict(enumerate(conns)), {}
+    deadline = time.monotonic() + timeout_s
+    while pending:
+        ready = wait(list(pending.values()), timeout=max(0.0, deadline - time.monotonic()))
+        assert ready, f"ranks {sorted(pending)} did not answer within {timeout_s} s"
+        for rank, conn in list(pending.items()):
+            if conn in ready:
+                status, value = conn.recv()
+                assert status == "ok", f"rank {rank}: {value}"
+                del pending[rank]
+                answers[rank] = value
+    return [answers[rank] for rank in range(len(conns))]
+
+
+@pytest.fixture(scope="module")
+def nccl_runs(dev, tmp_path_factory):
+    """The two jobs of :func:`_ddp_graph_job`, then :func:`_ddp_solver_job`,
+    on a two-rank NCCL group (a card a rank), each rank's result by job;
+    ``ended``: each rank's exit code after the group was destroyed (None:
+    still running after 120 s)."""
+    import multiprocessing
+    import socket
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: NCCL takes one card a rank")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    conns, procs = [], []
+    for rank in range(2):
+        ours, theirs = ctx.Pipe()
+        procs.append(ctx.Process(target=_nccl_serve, args=(rank, port, theirs), daemon=True))
+        procs[-1].start()
+        theirs.close()
+        conns.append(ours)
+    runs = {}
+    out = str(tmp_path_factory.mktemp("nccl_solver"))
+    jobs = {"plain": ("_ddp_graph_job", {"il": False}), "il": ("_ddp_graph_job", {"il": True}),
+            "solver": ("_ddp_solver_job", {"out": out})}
+    try:
+        for job, call in jobs.items():
+            for conn in conns:
+                conn.send(call)
+            runs[job] = _answers(conns, 300)
+    finally:
+        for conn in conns:
+            try:
+                conn.send(None)
+            except OSError:
+                pass
+        for proc in procs:
+            proc.join(timeout=120)
+        runs["ended"] = [proc.exitcode for proc in procs]
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
+    return runs
+
+
+def test_ddp_step_graph_replay_is_the_eager_step(nccl_runs):
+    """Over NCCL the DDP step replays: six steps through one step function
+    (eager, capture, four replays), the InfoNCE's all-gathers and the
+    gradient all-reduce inside the graph, equal six eager DDP steps from the
+    same state bit for bit on each rank (checked on the rank), and the two
+    ranks end bit for bit equal. No backward meets an ``AccumulateGrad``
+    node that DDP made on another stream (which voids a capture where NCCL
+    runs a blocking stream of its own)."""
+    for job in ("plain", "il"):
+        assert [r["stream_warnings"] for r in nccl_runs[job]] == [[], []]
+    runs = nccl_runs["plain"]
+    assert [r["modes"] for r in runs] == [(1, 1, DDP_GRAPH_STEPS - 2)] * 2
+    assert runs[0]["digest"] == runs[1]["digest"]
+
+
+def test_ddp_step_graph_recaptures_at_il_events(nccl_runs):
+    """An IL reset after step 3 and a release with a new temperature after
+    step 6 each change the DDP step's key: every three steps run eager,
+    capture, replay, and all nine equal eager DDP steps bit for bit."""
+    runs = nccl_runs["il"]
+    assert [r["modes"] for r in runs] == [(3, 3, 3)] * 2
+    assert runs[0]["digest"] == runs[1]["digest"]
+
+
+def test_ddp_step_graph_replay_advances_the_counters(nccl_runs):
+    """Each DDP step, eager, captured or replayed, advances the registered
+    kernel counters by the eager step's increments."""
+    for r in nccl_runs["plain"]:
+        assert all(d == r["deltas"][0] for d in r["deltas"]), r["deltas"]
+        assert r["deltas"][0] == _moved(tiny_attention_fwd=4, tiny_attention_bwd=4,
+                                        codebook_pool_fwd=2, codebook_pool_bwd_dq=2,
+                                        codebook_pool_bwd_dsd=2)
+
+
+def test_ddp_step_graph_replay_runs_the_nccl_kernels(nccl_runs):
+    """A profiled replay of the DDP step holds NCCL's all-gather and
+    all-reduce kernels: the collectives run inside the graph."""
+    for r in nccl_runs["plain"]:
+        assert r["profiled_mode"] == "replay"
+        kernels = r["nccl_kernels"]
+        assert any("AllGather" in k for k in kernels), kernels
+        assert any("AllReduce" in k for k in kernels), kernels
+
+
+def test_ddp_solver_graph_releases_the_group(nccl_runs):
+    """``Solver.train()`` on two NCCL ranks captures its step once and replays
+    the rest; after it the group is destroyed while the Solver lives (as
+    ``cli_entry`` does), and both ranks end: ``train()`` released the step's
+    graphs, whose NCCL collectives would hold the communicator."""
+    for r in nccl_runs["solver"]:
+        assert r["wrapped"] == "DistributedDataParallel"
+        assert r["modes"] == (1, 1, 6)
+    assert nccl_runs["ended"] == [0, 0]
