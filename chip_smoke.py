@@ -37,8 +37,9 @@ and depth, bf16, both kernels on, random weights from seed 0),
    second call equal bit for bit) against their plain versions at
    Swin-MoE-B's stages at 256 images (stage 0: N=144, 4 heads, shifted,
    with its 16 windows' masks; stage 2: N=144, 16 heads; stage 3: N=36, 32
-   heads), beside SDPA with each window's bias as its ``attn_mask``; then
-   one train step of CLIP Swin-MoE-B from ``configs/clip_swinmoe_b_cc3m.yaml``'s
+   heads), beside SDPA with each window's bias as its ``attn_mask``; the
+   same for the cosine form (Swin V2: the scale's gradient too; SDPA over the
+   unit rows); then one train step of CLIP Swin-MoE-B from ``configs/clip_swinmoe_b_cc3m.yaml``'s
    model block at 256 pairs, ctx 32 (K4's counters reset just before, read
    just after: 24 launches each way; the MoE layers' counters), its time
    and peak memory;
@@ -303,6 +304,18 @@ WIN_ATOL, WIN_RTOL = 2e-2, 1e-2
 # blocks' strided window sets, then their partials): relative to its norm,
 # fp32 noise that grows as sqrt(W) ulps, well under 1e-4 at W = 4096.
 WIN_DBIAS_RTOL = 1e-4
+# The cosine form's dq and dk are its products times the head's scale s_h
+# and the row's inverse norm, where the dot form's carry 32^-1/2 (about the
+# inverse norm of these random rows). Both sides round ds times the inverse
+# norms to bf16, so where their fp32 ds differs by an ulp the two roundings
+# can part, and that noise grows with s_h (5 .. 30 here): the absolute
+# tolerance on dq and dk is WIN_COS_ATOL * s_h (0.125 read at stage 0, 4096
+# windows, against 0.02 + 1% of |ref|). The scale's gradient sums, per head,
+# W N dot products of a row with that gradient: the same parted roundings
+# and fp32 order over ~10^6 terms of both signs, relative to its norm over
+# the heads (3.2e-4 read at stage 0).
+WIN_COS_ATOL = WIN_ATOL
+WIN_DSCALE_RTOL = 1e-3
 # The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): a kernel's
 # bound is the larger of its bytes over HBM_BPS and its operations over BF16_FLOPS
 HBM_BPS = 3.35e12
@@ -704,12 +717,13 @@ def flash_case(dev, name, b, s, h, causal, route="flag"):
 
 
 # -- phase 3d: K4, Swin's window attention, against its plain versions -------
-def window_case(dev, name, nw, ws, heads, shifted):
+def window_case(dev, name, nw, ws, heads, shifted, cosine=False):
     """K4-fwd and K4-bwd (dqkv and the bias's gradient) against their plain
-    versions at one stage of Swin-MoE-B at ``BATCH`` images: ``nw`` windows
-    of ws x ws tokens an image, head width 32, the bias of a random
-    relative-position table plus, when ``shifted``, the shift mask. Returns
-    the forward and the backward rows."""
+    versions at one stage of Swin-B at ``BATCH`` images: ``nw`` windows of
+    ws x ws tokens an image, head width 32, the bias of a random
+    relative-position table plus, when ``shifted``, the shift mask. With
+    ``cosine``, the cosine form (Swin V2) at head scales 5 .. 30, and the
+    scale's gradient too. Returns the forward and the backward rows."""
     from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
 
     g = torch.Generator(device=dev).manual_seed(ws * 100 + heads)
@@ -722,51 +736,85 @@ def window_case(dev, name, nw, ws, heads, shifted):
     mask = torch.from_numpy(wa.shift_mask(hw, ws, ws // 2)).to(dev) if shifted else None
     bias = wa.combined_bias(rel, mask)
     dout = torch.randn(w, n, c, generator=g, device=dev).to(torch.bfloat16)
-    # the yardstick: SDPA over [W, H, N, 32] with the bias per window as its attn_mask
+    scale = torch.linspace(5.0, 30.0, heads, device=dev) if cosine else None
+    # the yardstick: SDPA over [W, H, N, 32] with the bias per window as its
+    # attn_mask (the cosine form: over the unit rows, q's times the head's
+    # scale and sqrt(32), which SDPA's own 32^-1/2 takes back)
     q, k, v = (t.reshape(w, n, heads, 32) for t in qkv.split(c, dim=-1))
+    if cosine:
+        unit = [t.float() / (t.float().norm(dim=-1, keepdim=True) + 1e-12) for t in (q, k)]
+        q = (unit[0] * scale[:, None] * 32 ** 0.5).to(torch.bfloat16)
+        k = unit[1].to(torch.bfloat16)
+        del unit
     per_window = bias.repeat(w // bias.shape[0], 1, 1, 1)
     lib_fwd = sdpa_fwd(q, k, v, False, per_window)
     lib_bwd = sdpa_fwd_bwd(q, k, v, False, dout.reshape(w, n, heads, 32), per_window)
     del per_window
+    if cosine:
+        label = "window_attention_cos"
 
-    got = wa.window_attention_fwd(qkv, bias, heads)
-    ref = wa.window_attention_reference(qkv, bias, heads)
+        def kernel_fwd():
+            return wa.window_attention_cos_fwd(qkv, bias, scale, heads)
+
+        def kernel_bwd():
+            return wa.window_attention_cos_bwd(qkv, bias, scale, heads, dout)
+    else:
+        label = "window_attention"
+
+        def kernel_fwd():
+            return wa.window_attention_fwd(qkv, bias, heads)
+
+        def kernel_bwd():
+            return wa.window_attention_bwd(qkv, bias, heads, dout)
+
+    def plain_fwd():
+        return wa.window_attention_reference(qkv, bias, heads, scale)
+
+    def plain_bwd():
+        return wa.window_attention_bwd_reference(qkv, bias, heads, dout, scale)
+
+    got = kernel_fwd()
+    ref = plain_fwd()
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs()
     ok = bool(torch.all(err <= WIN_ATOL + WIN_RTOL * ref.float().abs()))
     fwd = {"case": name, "max_abs_err": err.max().item(), "atol": WIN_ATOL, "rtol": WIN_RTOL,
            "within_tol": ok}
-    fwd["bound_ms"], fwd["bound_by"] = bound_ms(nbytes(qkv, bias, got),
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(nbytes(qkv, bias, scale, got),
                                                 2.0 * 2 * w * heads * n * n * 32)
     del got, ref, err
-    timed_row(fwd, lambda: wa.window_attention_reference(qkv, bias, heads),
-              lambda: wa.window_attention_fwd(qkv, bias, heads), lib_fwd)
-    log(f"kernel window_attention_fwd {name}: max_abs_err={fwd['max_abs_err']:.3e} "
+    timed_row(fwd, plain_fwd, kernel_fwd, lib_fwd)
+    log(f"kernel {label}_fwd {name}: max_abs_err={fwd['max_abs_err']:.3e} "
         f"(tol {WIN_ATOL} + {WIN_RTOL}*|ref|) ok={ok} {timing_text(fwd)}")
-    check(ok, f"window_attention_fwd {name} disagrees with window_attention_reference")
+    check(ok, f"{label}_fwd {name} disagrees with window_attention_reference")
 
-    dqkv, dbias = wa.window_attention_bwd(qkv, bias, heads, dout)
-    ref_dqkv, ref_dbias = wa.window_attention_bwd_reference(qkv, bias, heads, dout)
-    again = wa.window_attention_bwd(qkv, bias, heads, dout)
+    got, want, again = kernel_bwd(), plain_bwd(), kernel_bwd()
     torch.cuda.synchronize()
-    err = (dqkv.float() - ref_dqkv.float()).abs()
-    ok = bool(torch.all(err <= WIN_ATOL + WIN_RTOL * ref_dqkv.float().abs()))
-    gap = ((dbias - ref_dbias).norm() / ref_dbias.norm()).item()
-    repeat = torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
+    err = (got[0].float() - want[0].float()).abs()
+    atol = torch.full((3 * c,), WIN_ATOL, device=dev)
+    if cosine:  # dq and dk carry each head's scale
+        atol[:2 * c] = WIN_COS_ATOL * scale.clamp_min(1.0).repeat_interleave(32).repeat(2)
+    ok = bool(torch.all(err <= atol + WIN_RTOL * want[0].float().abs()))
+    gaps = [((a - b).norm() / b.norm()).item() for a, b in zip(got[1:], want[1:])]
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
     bwd = {"case": name, "max_abs_err": err.max().item(), "atol": WIN_ATOL, "rtol": WIN_RTOL,
-           "within_tol": ok, "dbias_rel_err": gap, "dbias_rtol": WIN_DBIAS_RTOL,
+           "within_tol": ok, "dbias_rel_err": gaps[0], "dbias_rtol": WIN_DBIAS_RTOL,
            "repeats_bit_for_bit": repeat}
-    bwd["bound_ms"], bwd["bound_by"] = bound_ms(nbytes(qkv, bias, dout, dqkv, dbias),
+    ok = ok and gaps[0] <= WIN_DBIAS_RTOL and repeat
+    if cosine:
+        bwd.update(dscale_rel_err=gaps[1], dscale_rtol=WIN_DSCALE_RTOL)
+        ok = ok and gaps[1] <= WIN_DSCALE_RTOL
+    bwd["bound_ms"], bwd["bound_by"] = bound_ms(nbytes(qkv, bias, scale, dout, *got),
                                                 2.0 * 5 * w * heads * n * n * 32)
-    del dqkv, dbias, ref_dqkv, ref_dbias, again, err
-    timed_row(bwd, lambda: wa.window_attention_bwd_reference(qkv, bias, heads, dout),
-              lambda: wa.window_attention_bwd(qkv, bias, heads, dout), lib_bwd)
-    log(f"kernel window_attention_bwd {name}: dqkv max_abs_err={bwd['max_abs_err']:.3e} "
-        f"(tol {WIN_ATOL} + {WIN_RTOL}*|ref|) ok={ok}; dbias |diff|/|ref| {gap:.3e} (tol "
-        f"{WIN_DBIAS_RTOL}); a second call equal bit for bit: {repeat} {timing_text(bwd)} "
+    del got, want, again, err
+    timed_row(bwd, plain_bwd, kernel_bwd, lib_bwd)
+    log(f"kernel {label}_bwd {name}: dqkv max_abs_err={bwd['max_abs_err']:.3e} "
+        f"(tol {WIN_ATOL}{' * s_h on dq, dk' if cosine else ''} + {WIN_RTOL}*|ref|); "
+        f"|diff|/|ref| of dbias, dscale "
+        f"{', '.join(f'{x:.3e}' for x in gaps)} (tol {WIN_DBIAS_RTOL}, {WIN_DSCALE_RTOL}); "
+        f"a second call equal bit for bit: {repeat}; ok={ok} {timing_text(bwd)} "
         f"(library: forward + backward)")
-    check(ok and gap <= WIN_DBIAS_RTOL and repeat,
-          f"window_attention_bwd {name} disagrees with window_attention_bwd_reference")
+    check(ok, f"{label}_bwd {name} disagrees with window_attention_bwd_reference")
     return fwd, bwd
 
 
@@ -3005,6 +3053,12 @@ def main() -> int:
           window_case(dev, f"stage 3 B={BATCH} N=36 H=32", 1, 6, 32, False)]
     k4f, k4b = [r[0] for r in k4], [r[1] for r in k4]
     report["kernel_checks"].update({"window_attention_fwd": k4f, "window_attention_bwd": k4b})
+    # and its cosine form at Swin V2-B's stages
+    k4c = [window_case(dev, f"stage 0 B={BATCH} N=144 H=4 shifted", 16, 12, 4, True, True),
+           window_case(dev, f"stage 2 B={BATCH} N=144 H=16", 1, 12, 16, False, True),
+           window_case(dev, f"stage 3 B={BATCH} N=36 H=32", 1, 6, 32, False, True)]
+    report["kernel_checks"].update({"window_attention_cos_fwd": [r[0] for r in k4c],
+                                    "window_attention_cos_bwd": [r[1] for r in k4c]})
     gc.collect()
     torch.cuda.empty_cache()
     swin_launches = swin_phase(dev, report)

@@ -10,7 +10,16 @@
 // cores (mma.sync m16n8k16, bf16 operands, fp32 sums) from ldmatrix
 // fragments (common.cuh); the softmax is K2's (tiny_attention.cuh), with the
 // window's fp32 [N, N] bias.
+//
+// The cosine form (Swin V2) computes the logits as a per-head scale times the
+// cosines of the q and k rows: the raw bf16 product q k^T in fp32, times the
+// rows' fp32 inverse norms 1 / (|q| + 1e-12) and 1 / (|k| + 1e-12), which
+// the block takes once from the staged tiles (inverse_norms). Its backward
+// maps the gradients of the unit rows back through the normalisation
+// (project32).
 #pragma once
+
+#include <type_traits>
 
 #include "tiny_attention.cuh"
 
@@ -93,6 +102,93 @@ __device__ __forceinline__ void store32(const float (&acc)[4][4], float mul, __n
       *reinterpret_cast<__nv_bfloat162*>(dst + r * row_stride + nt * 8 + 2 * (l & 3)) =
           __floats2bfloat162_rn(acc[nt][2 * half] * mul, acc[nt][2 * half + 1] * mul);
     }
+  }
+}
+
+// rn[r] = 1 / (|row r| + 1e-12) of the rows 0 .. rows - 1 of the q tile and,
+// at rn[rows + r], of the k tile: fp32 sums of the squares of the bf16
+// values. One row a thread.
+__device__ __forceinline__ void inverse_norms(const __nv_bfloat16* qs, const __nv_bfloat16* ks,
+                                              int rows, float* rn) {
+  for (int idx = threadIdx.x; idx < 2 * rows; idx += blockDim.x) {
+    const __nv_bfloat16* row = idx < rows ? qs + idx * kLdW : ks + (idx - rows) * kLdW;
+    float ss = 0.f;
+#pragma unroll
+    for (int c = 0; c < kDim; c += 2) {
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c));
+      ss = fmaf(v.x, v.x, ss);
+      ss = fmaf(v.y, v.y, ss);
+    }
+    rn[idx] = 1.f / (sqrtf(ss) + 1e-12f);
+  }
+}
+
+// The raw products of a warp's 16 query rows from row0 (C fragments s) to
+// cosines: s[nt][e] *= rq[row] * rk[col], rq and rk the inverse norms of the
+// q and k rows.
+template <int kNt>
+__device__ __forceinline__ void cosines(float (&s)[kNt][4], const float* rq, const float* rk,
+                                        int row0, int nt_end) {
+  const int l = lane_id();
+  const float fq[2] = {rq[row0 + (l >> 2)], rq[row0 + (l >> 2) + 8]};
+#pragma unroll
+  for (int nt = 0; nt < kNt; ++nt) {
+    if (nt >= nt_end) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[nt][e] *= fq[e >> 1] * rk[nt * 8 + 2 * (l & 3) + (e & 1)];
+  }
+}
+
+// A warp's 16 x 32 fp32 result acc_i = sum_j g_ij u_j for rows row0 ..
+// row0 + 15 (u the other operand's unit rows) is the gradient of the unit
+// rows y_i / |y_i| of `tile`; take it back through the normalisation:
+// acc_i <- rn_i (acc_i - yhat_i (yhat_i . acc_i)), yhat_i = y_i rn_i (the
+// 1e-12 left out of the Jacobian). Returns this thread's share of the sum of
+// yhat_i . acc_i over the rows: each row's dot product once, on the quad's
+// lane 0.
+__device__ __forceinline__ float project32(float (&acc)[4][4], const __nv_bfloat16* tile,
+                                           const float* rn, int row0) {
+  const int l = lane_id();
+  float share = 0.f;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + (l >> 2) + 8 * half;
+    const float f = rn[r];
+    float2 y[4];
+    float dot = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float2 v = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(tile + r * kLdW + nt * 8 + 2 * (l & 3)));
+      y[nt] = make_float2(v.x * f, v.y * f);
+      dot = fmaf(y[nt].x, acc[nt][2 * half], dot);
+      dot = fmaf(y[nt].y, acc[nt][2 * half + 1], dot);
+    }
+    dot = quad_sum(dot);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      acc[nt][2 * half] = f * (acc[nt][2 * half] - y[nt].x * dot);
+      acc[nt][2 * half + 1] = f * (acc[nt][2 * half + 1] - y[nt].y * dot);
+    }
+    if ((l & 3) == 0) share += dot;
+  }
+  return share;
+}
+
+// f(std::integral_constant<int, kT>) for the kT = ceil(n / 16) of a window of
+// n <= 144 tokens.
+template <typename F>
+auto by_tiles(int n, F&& f) {
+  switch ((n + 15) / 16) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    default: return f(std::integral_constant<int, 9>{});
   }
 }
 

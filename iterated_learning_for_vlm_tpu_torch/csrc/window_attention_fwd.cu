@@ -29,6 +29,14 @@
 // - the [N, N] fp32 bias of the window's (mask, head) is read from L2 in the
 //   softmax, entry by entry (the bias tensor is at most nW H N^2 4 bytes,
 //   5.3 MB at stage 0, and every block of the launch reads it).
+//
+// The cosine form (window_attention_cos_fwd, Swin V2's attention) runs the
+// same body with three more steps: once q and k have landed, each thread
+// takes one staged row's fp32 inverse norm (2 N values in shared memory);
+// the raw logits are multiplied by the two rows' inverse norms; and the
+// scale is the head's, read from the device ([H] fp32, exp(min(logit_scale,
+// ln 100)) made on the device by the caller, so a captured graph reads the
+// value of each replay).
 #include "window_attention.cuh"
 
 namespace {
@@ -36,19 +44,23 @@ namespace {
 using namespace ilvlm;
 using namespace ilvlm::win;
 
-template <int kT>
+template <int kT, bool kCos>
 constexpr size_t fwd_smem_bytes() {
-  return size_t(3) * 16 * kT * kLdW * sizeof(__nv_bfloat16);
+  return size_t(3) * 16 * kT * kLdW * sizeof(__nv_bfloat16) +
+         (kCos ? size_t(2) * 16 * kT * sizeof(float) : 0);
 }
 
-template <int kT>
-__global__ void __launch_bounds__(kT * 32)
-window_attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                            const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
-                            int n, int heads, int nbias, float scale) {
+// One (window, head) of either form: the dot product's logits are `scale`
+// times q k^T; the cosine form's are scales[h] times the rows' cosines.
+template <int kT, bool kCos>
+__device__ __forceinline__ void fwd_window(unsigned char* smem,
+                                           const __nv_bfloat16* __restrict__ qkv,
+                                           const float* __restrict__ bias,
+                                           __nv_bfloat16* __restrict__ out, int n, int heads,
+                                           int nbias, float scale,
+                                           const float* __restrict__ scales) {
   constexpr int kS16 = 16 * kT;
   constexpr int kNt = 2 * kT;  // 8-key tiles of a row
-  extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* const qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* const ks = qs + kS16 * kLdW;
   __nv_bfloat16* const vs = ks + kS16 * kLdW;
@@ -66,6 +78,13 @@ window_attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
   cp_async_wait<1>();
   __syncthreads();
 
+  float* const rn = reinterpret_cast<float*>(vs + kS16 * kLdW);  // q rows, then k rows
+  if constexpr (kCos) {
+    inverse_norms(qs, ks, kS16, rn);
+    scale = __ldg(scales + h);
+    __syncthreads();
+  }
+
   const int row0 = (threadIdx.x >> 5) * 16;  // this warp's first query row
   const int nt_end = tiny::key_tiles(row0, n, false, kNt);
   const float* const bw =
@@ -78,6 +97,7 @@ window_attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
     load_a(qa[1], qs, kLdW, row0, 16);
     product32<kNt>(qa, ks, nt_end, s);
   }
+  if constexpr (kCos) cosines<kNt>(s, rn, rn + kS16, row0, nt_end);
   tiny::softmax_rows<kNt, true>(s, row0, n, false, scale, nt_end, bw);
   cp_async_wait<0>();
   __syncthreads();
@@ -99,15 +119,37 @@ window_attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
 }
 
 template <int kT>
-cudaError_t launch(const __nv_bfloat16* qkv, const float* bias, __nv_bfloat16* out, int windows,
-                   int n, int heads, int nbias, float scale, cudaStream_t stream) {
+__global__ void __launch_bounds__(kT * 32)
+window_attention_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
+                            const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
+                            int n, int heads, int nbias, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  fwd_window<kT, false>(smem, qkv, bias, out, n, heads, nbias, scale, nullptr);
+}
+
+template <int kT>
+__global__ void __launch_bounds__(kT * 32)
+window_attention_cos_fwd_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                const float* __restrict__ bias,
+                                const float* __restrict__ scales,
+                                __nv_bfloat16* __restrict__ out, int n, int heads, int nbias) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  fwd_window<kT, true>(smem, qkv, bias, out, n, heads, nbias, 0.f, scales);
+}
+
+template <int kT, bool kCos, typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int windows, int heads, cudaStream_t stream, Args... args) {
   static unsigned long long configured = 0;
-  constexpr size_t smem = fwd_smem_bytes<kT>();
-  cudaError_t err = allow_smem(window_attention_fwd_kernel<kT>, smem, configured);
+  constexpr size_t smem = fwd_smem_bytes<kT, kCos>();
+  cudaError_t err = allow_smem(kernel, smem, configured);
   if (err != cudaSuccess) return err;
-  window_attention_fwd_kernel<kT><<<dim3(windows, heads), kT * 32, smem, stream>>>(
-      qkv, bias, out, n, heads, nbias, scale);
+  kernel<<<dim3(windows, heads), kT * 32, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+bool valid(int windows, int n, int heads, int nbias) {
+  return windows >= 1 && heads >= 1 && heads <= 65535 && n >= 1 && n <= kMaxN && nbias >= 1 &&
+         windows % nbias == 0;
 }
 
 }  // namespace
@@ -118,23 +160,32 @@ cudaError_t launch(const __nv_bfloat16* qkv, const float* bias, __nv_bfloat16* o
 // `stream`, does not synchronise.
 ILVLM_API int window_attention_fwd(const void* qkv, const void* bias, void* out, int windows,
                                    int n, int heads, int nbias, float scale, void* stream) {
-  if (windows < 1 || heads < 1 || heads > 65535 || n < 1 || n > kMaxN || nbias < 1 ||
-      windows % nbias != 0) {
-    return cudaErrorInvalidValue;
-  }
+  if (!valid(windows, n, heads, nbias)) return cudaErrorInvalidValue;
   const auto* q = static_cast<const __nv_bfloat16*>(qkv);
   const auto* b = static_cast<const float*>(bias);
   auto* o = static_cast<__nv_bfloat16*>(out);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((n + 15) / 16) {
-    case 1: return launch<1>(q, b, o, windows, n, heads, nbias, scale, st);
-    case 2: return launch<2>(q, b, o, windows, n, heads, nbias, scale, st);
-    case 3: return launch<3>(q, b, o, windows, n, heads, nbias, scale, st);
-    case 4: return launch<4>(q, b, o, windows, n, heads, nbias, scale, st);
-    case 5: return launch<5>(q, b, o, windows, n, heads, nbias, scale, st);
-    case 6: return launch<6>(q, b, o, windows, n, heads, nbias, scale, st);
-    case 7: return launch<7>(q, b, o, windows, n, heads, nbias, scale, st);
-    case 8: return launch<8>(q, b, o, windows, n, heads, nbias, scale, st);
-    default: return launch<9>(q, b, o, windows, n, heads, nbias, scale, st);
-  }
+  return by_tiles(n, [&](auto tiles) {
+    constexpr int kT = decltype(tiles)::value;
+    return launch<kT, false>(window_attention_fwd_kernel<kT>, windows, heads, st, q, b, o, n,
+                             heads, nbias, scale);
+  });
+}
+
+// The cosine form: as window_attention_fwd, with scales: [heads] fp32 on the
+// device, each head's multiplier of its rows' cosines.
+ILVLM_API int window_attention_cos_fwd(const void* qkv, const void* bias, const void* scales,
+                                       void* out, int windows, int n, int heads, int nbias,
+                                       void* stream) {
+  if (!valid(windows, n, heads, nbias)) return cudaErrorInvalidValue;
+  const auto* q = static_cast<const __nv_bfloat16*>(qkv);
+  const auto* b = static_cast<const float*>(bias);
+  const auto* sc = static_cast<const float*>(scales);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return by_tiles(n, [&](auto tiles) {
+    constexpr int kT = decltype(tiles)::value;
+    return launch<kT, true>(window_attention_cos_fwd_kernel<kT>, windows, heads, st, q, b, sc,
+                            o, n, heads, nbias);
+  });
 }

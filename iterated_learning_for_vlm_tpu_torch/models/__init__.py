@@ -9,9 +9,11 @@ built on the CUDA card, and building raises where there is none: the CPU
 takes it only when asked (``device="cpu"``). Ported so far: the baseline
 ``clip_vitb32`` and ``clip_vitb16``, ``clip_vitb32_auxilary`` (the same
 model: the towers give attention maps on request, ``return_attn``),
-``clip_fdt_vitb32`` / ``clip_fdt_vitb16`` and ``clip_swinMoE_B`` (CLIP with
-the Swin-MoE-B image tower, ``models/swin.py``); the other JAX model types,
-the other Swin towers among them, raise a ``KeyError`` that says so.
+``clip_fdt_vitb32`` / ``clip_fdt_vitb16``, ``clip_swinMoE_B`` (CLIP with
+the Swin-MoE-B image tower, ``models/swin.py``), and ``clip_swinB_v2`` /
+``clip_fdt_swinB_v2`` (CLIP and CLIP-FDT with the Swin V2-B tower); the other
+JAX model types raise a ``KeyError`` that says so (``clip_swinL_v2`` and
+``clip_swinL`` wait on the large text tower).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from .clip import CLIP
 from .fdt import CLIPFDT, FDTConfig, QueryModel
 from .layers import init_module_tree
 from .sparsemax import sparsemax, sparsemax_bisect
-from .swin import SwinConfig, SwinTransformer, swin_moe_b
+from .swin import SwinConfig, SwinTransformer, swin_b_v2, swin_moe_b
 from .text import TextConfig, TextTransformer, text_base
 from .vit import VisionConfig, VisionTransformer, vit_b16, vit_b32
 
@@ -39,8 +41,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.b
 # model types of the JAX package that the port does not build yet
 UNPORTED = (
     "clip_vitL14", "clip_vitL16", "clip_res50", "clip_res101",
-    "clip_swinB_v2", "clip_swinL", "clip_swinL_v2", "clip_swinMLP_B",
-    "clip_swin_yaml", "clip_fdt_swinB_v2", "clip_vitb32_sp", "clip_fdt_sp_vitb32",
+    "clip_swinL", "clip_swinL_v2", "clip_swinMLP_B",
+    "clip_swin_yaml", "clip_vitb32_sp", "clip_fdt_sp_vitb32",
     "declip_fdt_vitb32", "defilip_fdt_vitb32",
 )
 
@@ -115,6 +117,12 @@ def clip_swinMoE_B(device=None, **kw) -> CLIP:
     return _clip(swin_moe_b, kw, device)
 
 
+def clip_swinB_v2(device=None, **kw) -> CLIP:
+    """CLIP with the Swin V2-B image tower (``models/swin.py``: res-post-norm
+    blocks, cosine window attention with the continuous position bias)."""
+    return _clip(swin_b_v2, kw, device)
+
+
 def _clip_fdt(vision_factory, kw, device) -> CLIPFDT:
     img_kw, txt_kw, dtype = _common(kw)
     fdt_kw = dict(kw.get("fdt", {}))
@@ -134,10 +142,20 @@ def clip_fdt_vitb16(device=None, **kw) -> CLIPFDT:
     return _clip_fdt(vit_b16, kw, device)
 
 
+def clip_fdt_swinB_v2(device=None, **kw) -> CLIPFDT:
+    """CLIP-FDT with the Swin V2-B image tower (JAX ``clip_fdt_swinB_v2``):
+    the image query head reads the tower's final-stage tokens, 1024 wide
+    (``raw_img_ft_dim`` defaults to it), T = (resolution / 32)^2 of them."""
+    kw = dict(kw)
+    kw["fdt"] = {"raw_img_ft_dim": 1024, **kw.get("fdt", {})}
+    return _clip_fdt(swin_b_v2, kw, device)
+
+
 _REGISTRY = {"clip_vitb32": clip_vitb32, "clip_vitb16": clip_vitb16,
              "clip_vitb32_auxilary": clip_vitb32_auxilary,
              "clip_fdt_vitb32": clip_fdt_vitb32, "clip_fdt_vitb16": clip_fdt_vitb16,
-             "clip_swinMoE_B": clip_swinMoE_B}
+             "clip_swinMoE_B": clip_swinMoE_B, "clip_swinB_v2": clip_swinB_v2,
+             "clip_fdt_swinB_v2": clip_fdt_swinB_v2}
 
 
 def model_entry(config, device=None, generator: Optional[torch.Generator] = None):

@@ -28,7 +28,7 @@ def build_vision_tower(cfg, dtype, device=None):
         return SwinTransformer(cfg, dtype=dtype, device=device)
     if not isinstance(cfg, VisionConfig):
         raise NotImplementedError(f"vision tower {type(cfg).__name__} is not ported to "
-                                  "the PyTorch package yet (ViT and Swin v1 only)")
+                                  "the PyTorch package yet (ViT and Swin only)")
     return VisionTransformer(cfg, dtype=dtype, device=device)
 
 
@@ -43,7 +43,7 @@ class CLIP(nn.Module):
     text embeddings are ``model.encode_text(tokens, pad_mask)["embed"]``, and
     image embeddings ``model.encode_image(images)``. A Swin-MoE tower's
     ``moe_aux`` is passed on in the forward's output; ResNet towers and the
-    Swin v2 and Swin-MLP blocks are not ported."""
+    Swin-MLP blocks are not ported."""
 
     def __init__(self, vision_cfg: VisionConfig, text_cfg: TextConfig, dtype=torch.float32,
                  device=None):

@@ -30,6 +30,7 @@ from .clip import LOGIT_SCALE_INIT, LOGIT_SCALE_MAX, build_vision_tower, l2_norm
 from .initializers import scaled_normal, torch_bias_uniform, torch_kaiming_uniform
 from .layers import LayerNorm, Linear
 from .sparsemax import sparsemax, sparsemax_bisect
+from .swin import SwinTransformer
 from .text import TextConfig, TextTransformer
 from .vit import VisionConfig
 
@@ -171,6 +172,11 @@ class CLIPFDT(nn.Module):
         return self.fdt_cfg.sd_temperature if t is None else t
 
     def _patches(self, images):
+        """The image tower's tokens for the codebook: a ViT's patch tokens (its
+        class token dropped), a Swin tower's final-stage ``patches`` (it has
+        no class token)."""
+        if isinstance(self.visual, SwinTransformer):
+            return self.visual(images)["patches"]
         return self.visual.tokens(images)[:, 1:, :]
 
     # -- feature extraction (reference ``extract_*`` API) -------------------

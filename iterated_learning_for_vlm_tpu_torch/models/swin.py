@@ -1,25 +1,39 @@
-"""Swin Transformer v1 image tower with sparse experts (Swin-MoE).
+"""Swin Transformer image towers: v1 with sparse experts (Swin-MoE), and v2.
 
 Counterpart of ``iterated_learning_for_vlm_tpu/models/swin.py`` for the
-configuration ``clip_swinMoE_B`` builds: the v1 (pre-norm) blocks with
-window attention, a learned relative-position-bias table per block, cyclic
-shifts on odd blocks with the -100 shift mask, patch merging (LayerNorm,
-then a bias-free reduction), the final LayerNorm, a mean pool and the
-projection; the MLP of the listed blocks is a top-1 mixture of experts
-(:class:`MoEMlp`), whose load-balancing term the tower returns as
-``moe_aux``. The v2 blocks and the Swin-MLP token mix are not ported.
+configurations ``clip_swinMoE_B``, ``clip_swinB_v2`` and
+``clip_fdt_swinB_v2`` build:
+
+- v1 (:class:`WindowAttention`): pre-norm blocks, ``x + attn(norm1(x))``,
+  scaled dot-product window attention with a learned relative-position-bias
+  table per block; patch merging takes the LayerNorm, then a bias-free
+  reduction. The MLP of the listed blocks may be a top-1 mixture of experts
+  (:class:`MoEMlp`), whose load-balancing term the tower returns as
+  ``moe_aux``.
+- v2 (:class:`WindowAttentionV2`): res-post-norm blocks, ``x + norm1(attn(x))``;
+  cosine window attention (q and k rows L2-normalised, a learned per-head
+  ``logit_scale`` clamped at ln 100 inside the exp) with a continuous
+  position bias: a 2 -> 512 -> H MLP (``cpb_mlp``) over log-spaced relative
+  offsets, ``16 sigmoid`` of its output; patch merging takes the reduction,
+  then the LayerNorm.
+
+Both: cyclic shifts on odd blocks with the -100 shift mask, the final
+LayerNorm, a mean pool and the projection. The Swin-MLP token mix is not
+ported.
 
 Module names follow the Microsoft Swin layout (``patch_embed.proj``,
-``layers.{s}.blocks.{b}.attn.qkv``, ``layers.{s}.downsample.reduction``,
-``norm``), and ``tools/torch_checkpoint.py`` maps each onto its flax path
+``layers.{s}.blocks.{b}.attn.qkv``, ``attn.logit_scale``, ``attn.cpb_mlp.{0,2}``,
+``layers.{s}.downsample.reduction``, ``norm``), and
+``tools/torch_checkpoint.py`` maps each onto its flax path
 (``stage{s}_block{b}/...``, ``merge{s}/...``). Parameters are fp32; each
-layer computes in the tower's ``dtype``, as the flax modules do.
+layer computes in the tower's ``dtype``, as the flax modules do, but the
+position-bias MLP, which the JAX module computes in fp32 whatever the dtype.
 
-Window attention (:class:`WindowAttention`) takes K4 (``ops/window_attention.py``)
-on any device but the CPU; K4 raises on a call it cannot take (it takes bf16,
-head width 32 and N <= 144). On the CPU it is the plain route, the JAX
-formulation op for op. Window partition, reverse and the cyclic shift
-are torch reshapes and rolls.
+Window attention takes K4 (``ops/window_attention.py``; the v2 blocks its
+cosine form) on any device but the CPU; K4 raises on a call it cannot take
+(it takes bf16, head width 32 and N <= 144). On the CPU it is the plain
+route, the JAX formulation op for op. Window partition, reverse and the
+cyclic shift are torch reshapes and rolls.
 """
 from __future__ import annotations
 
@@ -27,6 +41,7 @@ import math
 from dataclasses import dataclass, fields, replace
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -135,6 +150,95 @@ class WindowAttention(nn.Module):
         h = self.heads
         q, k, v = (t.reshape(w, n, h, -1) for t in qkv.split(three_c // 3, dim=-1))
         attn = torch.einsum("wqhc,wkhc->whqk", q.float(), k.float()) * q.shape[-1] ** -0.5
+        attn = attn + rel_bias[None]
+        if mask is not None:
+            nw = mask.shape[0]
+            attn = (attn.reshape(-1, nw, h, n, n) + mask[None, :, None]).reshape(w, h, n, n)
+        attn = torch.softmax(attn, dim=-1).to(self.dtype)
+        return torch.einsum("whqk,wkhc->wqhc", attn, v).reshape(w, n, three_c // 3)
+
+
+LOGIT_SCALE_MAX = math.log(100.0)  # the v2 attention's clamp of its logit scale
+CPB_HIDDEN = 512  # the position-bias MLP's hidden width
+
+
+def cpb_coords(ws: int) -> np.ndarray:
+    """``[(2 ws - 1)^2, 2]`` fp32: the log-spaced offsets ``sign(d) ln(1 + |d|)
+    / ln 8`` of each relative-position table row (dy, dx), in the row order of
+    :func:`ops.window_attention.relative_position_index` (the JAX module's
+    input, taken per table row instead of per pair)."""
+    d = np.arange(-(ws - 1), ws, dtype=np.float64)
+    grid = np.stack(np.meshgrid(d, d, indexing="ij"), axis=-1).reshape(-1, 2)
+    return (np.sign(grid) * np.log1p(np.abs(grid)) / np.log(8.0)).astype(np.float32)
+
+
+class WindowAttentionV2(nn.Module):
+    """Swin V2 window attention: cosine logits times the head's
+    ``exp(min(logit_scale, ln 100))``, plus ``16 sigmoid(cpb_mlp(offsets))``.
+
+    The MLP runs on the ``(2 ws - 1)^2`` table of offsets, and the
+    ``[H, N, N]`` bias is gathered from it by ``RelativePositionBias``: the
+    JAX module's per-pair MLP computes the same value for every pair of a
+    row, at ``N^2 / (2 ws - 1)^2`` times the rows (39 at ws 12)."""
+
+    def __init__(self, dim: int, heads: int, window_size: int, dtype=torch.float32,
+                 device=None, stage: int = 0, block: int = 0):
+        super().__init__()
+        self.heads = heads
+        self.window_size = window_size
+        self.dtype = dtype
+        self.stage, self.block = stage, block
+        self.qkv = Linear(dim, 3 * dim, dtype=dtype, device=device)
+        self.logit_scale = nn.Parameter(torch.full((heads, 1, 1), math.log(10.0), device=device))
+        self.cpb_mlp = nn.Sequential(nn.Linear(2, CPB_HIDDEN, device=device), nn.ReLU(),
+                                     nn.Linear(CPB_HIDDEN, heads, bias=False, device=device))
+        self.proj = Linear(dim, dim, dtype=dtype, device=device)
+        index = torch.from_numpy(wa.relative_position_index(window_size)).to(device)
+        self.register_buffer("relative_position_index", index, persistent=False)
+        coords = torch.from_numpy(cpb_coords(window_size)).to(device)
+        self.register_buffer("cpb_coords", coords, persistent=False)
+
+    def init_weights(self, generator=None):
+        torch_kaiming_uniform(self.qkv.weight, generator)
+        torch_kaiming_uniform(self.proj.weight, generator)
+        for fc in (self.cpb_mlp[0], self.cpb_mlp[2]):
+            torch_kaiming_uniform(fc.weight, generator)
+        with torch.no_grad():
+            self.qkv.bias.zero_()
+            self.proj.bias.zero_()
+            self.cpb_mlp[0].bias.zero_()
+            self.logit_scale.fill_(math.log(10.0))
+
+    def position_bias(self) -> torch.Tensor:
+        """``[H, N, N]`` fp32: ``16 sigmoid`` of the MLP over the offsets."""
+        with span("swin.cpb", stage=self.stage, block=self.block,
+                  rows=self.cpb_coords.shape[0], heads=self.heads):
+            table = 16.0 * torch.sigmoid(self.cpb_mlp(self.cpb_coords))
+            return wa.RelativePositionBias.apply(table, self.relative_position_index,
+                                                 self.window_size)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x [nW * B, N, C]``, ``mask [nW, N, N]`` fp32 or None -> ``[nW * B, N, C]``."""
+        qkv = self.qkv(x)
+        rel_bias = self.position_bias()
+        scale = torch.exp(torch.clamp_max(self.logit_scale, LOGIT_SCALE_MAX))
+        if x.device.type == "cpu":
+            out = self._plain(qkv, rel_bias, mask, scale)
+        else:
+            out = wa.WindowAttentionFn.apply(qkv.contiguous(), rel_bias, mask, self.heads,
+                                             scale.reshape(-1))
+        return self.proj(out)
+
+    def _plain(self, qkv, rel_bias, mask, scale):
+        """The JAX formulation: q and k normalised in ``dtype``, their fp32
+        product times the scale, + bias (+ mask), fp32 softmax cast to
+        ``dtype``, the value product in ``dtype``."""
+        w, n, three_c = qkv.shape
+        h = self.heads
+        q, k, v = (t.reshape(w, n, h, -1) for t in qkv.split(three_c // 3, dim=-1))
+        q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-12)
+        k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-12)
+        attn = torch.einsum("wqhc,wkhc->whqk", q.float(), k.float()) * scale
         attn = attn + rel_bias[None]
         if mask is not None:
             nw = mask.shape[0]
@@ -253,20 +357,25 @@ class MoEMlp(nn.Module):
 
 class SwinBlock(nn.Module):
     """Pre-norm v1 block: ``x + attn(norm1(x))``, then ``x + mlp(norm2(x))``;
-    odd blocks shift the windows by ws // 2 (none when one window covers the
-    map)."""
+    res-post-norm v2 block (``v2``): ``x + norm1(attn(x))``, then
+    ``x + norm2(mlp(x))``. Odd blocks shift the windows by ws // 2 (none when
+    one window covers the map)."""
 
     def __init__(self, dim: int, heads: int, resolution: int, window_size: int, shift: int,
                  mlp_ratio: float, dtype=torch.float32, device=None, num_experts: int = 0,
-                 capacity_factor: float = 1.25, stage: int = 0, layer: int = 0):
+                 capacity_factor: float = 1.25, stage: int = 0, layer: int = 0,
+                 v2: bool = False, block: int = 0):
         super().__init__()
         self.resolution = resolution
         self.window_size = ws = min(window_size, resolution)
         self.shift = shift if ws < resolution else 0
         self.stage = stage
+        self.v2 = v2
         hidden = int(dim * mlp_ratio)
         self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
-        self.attn = WindowAttention(dim, heads, ws, dtype=dtype, device=device)
+        self.attn = (WindowAttentionV2(dim, heads, ws, dtype=dtype, device=device, stage=stage,
+                                       block=block)
+                     if v2 else WindowAttention(dim, heads, ws, dtype=dtype, device=device))
         self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
         self.moe = num_experts > 0
         self.mlp = (MoEMlp(dim, hidden, num_experts, capacity_factor, dtype=dtype, device=device,
@@ -283,36 +392,50 @@ class SwinBlock(nn.Module):
         if shift:
             img = torch.roll(img, (-shift, -shift), dims=(1, 2))
         wins = window_partition(img, ws)
-        with span("swin.window_attn", stage=self.stage, windows=wins.shape[0], n=ws * ws):
+        with span("swin.window_attn", stage=self.stage, windows=wins.shape[0], n=ws * ws,
+                  form="cosine" if self.v2 else "dot"):
             wins = self.attn(wins, self.attn_mask)
         img = window_reverse(wins, ws, hw, hw)
         if shift:
             img = torch.roll(img, (shift, shift), dims=(1, 2))
         return img.reshape(b, l, c)
 
-    def forward(self, x: torch.Tensor):
-        x = x + self._attend(self.norm1(x))
+    def _mlp(self, x: torch.Tensor):
         if self.moe:
-            y, aux = self.mlp(self.norm2(x))
-            return x + y, aux
-        return x + self.mlp(self.norm2(x)), None
+            return self.mlp(x)
+        return self.mlp(x), None
+
+    def forward(self, x: torch.Tensor):
+        if self.v2:
+            x = x + self.norm1(self._attend(x))
+            y, aux = self._mlp(x)
+            return x + self.norm2(y), aux
+        x = x + self._attend(self.norm1(x))
+        y, aux = self._mlp(self.norm2(x))
+        return x + y, aux
 
 
 class PatchMerging(nn.Module):
-    """2 x 2 neighbours concatenated (x0, x1, x2, x3 as Swin orders them),
-    LayerNorm, then a bias-free reduction to twice the channels."""
+    """2 x 2 neighbours concatenated (x0, x1, x2, x3 as Swin orders them), then
+    a LayerNorm and a bias-free reduction to twice the channels (v1), or the
+    reduction and then a LayerNorm of its output (v2)."""
 
-    def __init__(self, dim: int, resolution: int, dtype=torch.float32, device=None):
+    def __init__(self, dim: int, resolution: int, dtype=torch.float32, device=None,
+                 v2: bool = False):
         super().__init__()
         self.resolution = resolution
-        self.norm = LayerNorm(4 * dim, dtype=dtype, device=device)
+        self.v2 = v2
+        self.norm = LayerNorm(2 * dim if v2 else 4 * dim, dtype=dtype, device=device)
         self.reduction = LinearNoBias(4 * dim, 2 * dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, l, c = x.shape
         hw = self.resolution
         img = x.reshape(b, hw // 2, 2, hw // 2, 2, c).permute(0, 1, 3, 4, 2, 5)
-        return self.reduction(self.norm(img.reshape(b, (hw // 2) ** 2, 4 * c)))
+        img = img.reshape(b, (hw // 2) ** 2, 4 * c)
+        if self.v2:
+            return self.norm(self.reduction(img))
+        return self.reduction(self.norm(img))
 
 
 class PatchEmbed(nn.Module):
@@ -355,10 +478,9 @@ class SwinTransformer(nn.Module):
 
     def __init__(self, cfg: SwinConfig, dtype=torch.float32, device=None):
         super().__init__()
-        if cfg.v2 or cfg.mlp_mix:
-            raise NotImplementedError("the Swin v2 blocks and the Swin-MLP token mix are not "
-                                      "ported to the PyTorch package; ported: Swin v1 and "
-                                      "Swin-MoE (clip_swinMoE_B)")
+        if cfg.mlp_mix:
+            raise NotImplementedError("the Swin-MLP token mix is not ported to the PyTorch "
+                                      "package; ported: Swin v1, Swin-MoE and Swin v2")
         if cfg.num_experts > 0 and cfg.moe_top_k != 1:
             raise NotImplementedError(f"moe_top_k={cfg.moe_top_k}: the port routes top-1")
         self.cfg = cfg
@@ -375,11 +497,13 @@ class SwinTransformer(nn.Module):
                     dim, cfg.num_heads[stage], res, cfg.window_size,
                     0 if blk % 2 == 0 else cfg.window_size // 2, cfg.mlp_ratio, dtype=dtype,
                     device=device, num_experts=cfg.num_experts if moe else 0,
-                    capacity_factor=cfg.capacity_factor, stage=stage, layer=moe_layer))
+                    capacity_factor=cfg.capacity_factor, stage=stage, layer=moe_layer,
+                    v2=cfg.v2, block=blk))
                 moe_layer += moe
             last = stage == len(cfg.depths) - 1
             layers.append(BasicLayer(
-                blocks, None if last else PatchMerging(dim, res, dtype=dtype, device=device)))
+                blocks, None if last else PatchMerging(dim, res, dtype=dtype, device=device,
+                                                       v2=cfg.v2)))
             if not last:
                 res //= 2
                 dim *= 2
@@ -438,3 +562,10 @@ def swin_moe_b(embed_dim=512, num_experts=8, moe_top_k=1, capacity_factor=1.25,
                    v2=False, output_dim=embed_dim, num_experts=num_experts,
                    moe_top_k=moe_top_k, capacity_factor=capacity_factor,
                    moe_stages=tuple(moe_stages)), kw)
+
+
+def swin_b_v2(embed_dim=512, **kw) -> SwinConfig:
+    """Swin V2-B (JAX ``swin_b_v2``): embed 128, depths (2, 2, 18, 2), heads
+    (4, 8, 16, 32), res-post-norm blocks with cosine attention."""
+    return _override(SwinConfig(embed_dim=128, depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32),
+                                v2=True, output_dim=embed_dim), kw)

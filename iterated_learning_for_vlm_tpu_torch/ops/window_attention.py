@@ -22,6 +22,12 @@ shift mask (-100 across a cyclic-shift seam).
   wrappers: a CPU tensor takes the plain version, a CUDA tensor launches
   ``csrc/window_attention_{fwd,bwd}.cu`` or raises. Each counts its launches
   in ``.launches``.
+- The cosine form (Swin V2): given ``scale [H]`` (fp32, on the device), the
+  logits are ``scale[h] * cos(q_i, k_j)`` in place of ``q_i . k_j / sqrt(32)``,
+  the rows normalised as ``q / (|q| + 1e-12)``. Its wrappers
+  :func:`window_attention_cos_fwd` / :func:`window_attention_cos_bwd` launch
+  the kernels' cosine entries and count in their own ``.launches``; the
+  backward also gives the scale's gradient, summed over the windows.
 - :class:`WindowAttentionFn` is the ``autograd.Function`` over them;
   :class:`RelativePositionBias` gathers the ``[H, N, N]`` bias from the
   ``[(2 ws - 1)^2, H]`` table and reduces its gradient back onto the table
@@ -89,45 +95,84 @@ def _per_window(bias: torch.Tensor, windows: int) -> torch.Tensor:
     return bias[None].expand(windows // nbias, *bias.shape).reshape(windows, *bias.shape[1:])
 
 
-def _probs(qkv: torch.Tensor, bias: torch.Tensor, heads: int):
-    q, k, v = _split(qkv, heads)
-    scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("wqhc,wkhc->whqk", q.float(), k.float()) * scale
-    logits = logits + _per_window(bias, qkv.shape[0])
-    return torch.softmax(logits, dim=-1), v
+def _inverse_norms(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (|x| + 1e-12)`` over the last axis, kept for broadcasting."""
+    return 1.0 / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
 
 
-def window_attention_reference(qkv: torch.Tensor, bias: torch.Tensor,
-                               heads: int) -> torch.Tensor:
+def _logits(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+            scale: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """fp32 ``(logits [W, H, N, N], q, k, v, rq, rk)``: the dot-product form's
+    ``q k^T / sqrt(32)``, or with ``scale [H]`` the cosine form's ``scale[h]
+    (q k^T) rq rk`` (rq, rk the rows' inverse norms ``[W, N, H, 1]``, None
+    in the dot-product form), plus the bias."""
+    q, k, v = (t.float() for t in _split(qkv, heads))
+    logits = torch.einsum("wqhc,wkhc->whqk", q, k)
+    if scale is None:
+        logits = logits * q.shape[-1] ** -0.5
+        rq = rk = None
+    else:
+        rq, rk = _inverse_norms(q), _inverse_norms(k)
+        rq_t, rk_t = rq[..., 0].transpose(1, 2), rk[..., 0].transpose(1, 2)  # [W, H, N]
+        logits = logits * rq_t[..., None] * rk_t[:, :, None] * scale.float()[:, None, None]
+    return logits + _per_window(bias, qkv.shape[0]), q, k, v, rq, rk
+
+
+def window_attention_reference(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+                               scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain window attention: ``qkv [W, N, 3C]`` (q | k | v column blocks,
     bias added), ``bias [nbias, H, N, N]`` fp32 -> ``[W, N, C]`` in qkv's
-    dtype: fp32 logits, bias and softmax, p rounded to the operand dtype for
-    ``p v``."""
+    dtype: fp32 logits (the cosine form's with ``scale [H]``), bias and
+    softmax, p rounded to the operand dtype for ``p v``."""
     w, n, three_c = qkv.shape
-    p, v = _probs(qkv, bias, heads)
-    return torch.einsum("whqk,wkhc->wqhc", p.to(qkv.dtype), v).reshape(w, n, three_c // 3)
+    logits, *_, v, _, _ = _logits(qkv, bias, heads, scale)
+    p = torch.softmax(logits, dim=-1).to(qkv.dtype)
+    return torch.einsum("whqk,wkhc->wqhc", p, v.to(qkv.dtype)).reshape(w, n, three_c // 3)
+
+
+def _unit_grad(acc: torch.Tensor, x: torch.Tensor, r: torch.Tensor):
+    """``(r (acc - xhat (xhat . acc)), xhat . acc)`` for ``acc`` the gradient
+    of the unit rows ``xhat = x r`` (the 1e-12 left out of the Jacobian)."""
+    unit = x * r
+    dot = (unit * acc).sum(dim=-1, keepdim=True)
+    return r * (acc - unit * dot), dot
 
 
 def window_attention_bwd_reference(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
-                                   dout: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                                   dout: torch.Tensor, scale: Optional[torch.Tensor] = None):
     """Plain backward with K4-bwd's rounding: ``(dqkv [W, N, 3C]`` in qkv's
-    dtype, ``dbias [H, N, N]`` fp32, the sum over windows of ds). p and ds are
-    fp32, rounded to the operand dtype for ``dv = p^T do``, ``dq = ds k scale``
-    and ``dk = ds^T q scale``; ``dp = do v^T`` and ``D = sum(dp p)`` in fp32."""
+    dtype, ``dbias [H, N, N]`` fp32, the sum over windows of ds``)``, and with
+    ``scale`` a third item, ``dscale [H]`` fp32. p and ds are fp32, rounded
+    to the operand dtype for ``dv = p^T do``, ``dq = ds k scale`` and
+    ``dk = ds^T q scale``; ``dp = do v^T`` and ``D = sum(dp p)`` in fp32.
+    The cosine form rounds ``ds rk`` (for dq) and ``rq ds`` (for dk) instead
+    of ds, takes each product back through its rows' normalisation, and sums
+    ``qhat_i . (sum_j ds_ij khat_j)`` over the rows and windows for dscale."""
     w, n, three_c = qkv.shape
     dt = qkv.dtype
-    q, k, v = (t.float() for t in _split(qkv, heads))
-    scale = q.shape[-1] ** -0.5
-    p, _ = _probs(qkv, bias, heads)
+    logits, q, k, v, rq, rk = _logits(qkv, bias, heads, scale)
+    p = torch.softmax(logits, dim=-1)
     do = dout.to(dt).reshape(w, n, heads, -1).float()
     dv = torch.einsum("whqk,wqhc->wkhc", p.to(dt).float(), do)
     dp = torch.einsum("wqhc,wkhc->whqk", do, v)
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dsr = ds.to(dt).float()
-    dq = torch.einsum("whqk,wkhc->wqhc", dsr, k) * scale
-    dk = torch.einsum("whqk,wqhc->wkhc", dsr, q) * scale
+    if scale is None:
+        mul = q.shape[-1] ** -0.5
+        dsr = ds.to(dt).float()
+        dq = torch.einsum("whqk,wkhc->wqhc", dsr, k) * mul
+        dk = torch.einsum("whqk,wqhc->wkhc", dsr, q) * mul
+    else:
+        mul = scale.float()[:, None]  # [H, 1] against [W, N, H, C]
+        rq_t, rk_t = rq[..., 0].transpose(1, 2), rk[..., 0].transpose(1, 2)  # [W, H, N]
+        dsq = (ds * rk_t[:, :, None]).to(dt).float()
+        dsk = (ds * rq_t[..., None]).to(dt).float()
+        dq, dot = _unit_grad(torch.einsum("whqk,wkhc->wqhc", dsq, k), q, rq)
+        dk, _ = _unit_grad(torch.einsum("whqk,wqhc->wkhc", dsk, q), k, rk)
+        dq, dk = dq * mul, dk * mul
     dqkv = torch.cat([t.to(dt).reshape(w, n, three_c // 3) for t in (dq, dk, dv)], dim=-1)
-    return dqkv, ds.sum(dim=0)
+    if scale is None:
+        return dqkv, ds.sum(dim=0)
+    return dqkv, ds.sum(dim=0), dot[..., 0].sum(dim=(0, 1))
 
 
 # (qkv, bias, out), (windows, n, heads, nbias), scale, stream
@@ -135,6 +180,11 @@ _FWD_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_float, 
 # (qkv, bias, dout, dqkv, dbias_part), (windows, n, heads, nbias, groups), scale, stream
 _BWD_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_float, ctypes.c_void_p)
 _GROUPS_ARGTYPES = (ctypes.c_int,) * 3
+# (qkv, bias, scales, out), (windows, n, heads, nbias), stream
+_COS_FWD_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+# (qkv, bias, scales, dout, dqkv, dbias_part, dscale_part),
+# (windows, n, heads, nbias, groups), stream
+_COS_BWD_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 
 
 def _check_cuda_args(name: str, qkv: torch.Tensor, bias: torch.Tensor, heads: int) -> None:
@@ -188,12 +238,8 @@ def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     if qkv.device.type != "cuda":
         raise ValueError(f"window_attention_bwd: unsupported device {qkv.device}")
     _check_cuda_args("window_attention_bwd", qkv, bias, heads)
-    w, n, three_c = qkv.shape
-    if (dout.shape != (w, n, three_c // 3) or dout.dtype != qkv.dtype
-            or dout.device != qkv.device or not dout.is_contiguous() or dout.data_ptr() % 16):
-        raise ValueError(f"window_attention_bwd: dout must be a contiguous, 16-byte aligned "
-                         f"[{w}, {n}, {three_c // 3}] {qkv.dtype} tensor on {qkv.device}, got "
-                         f"{tuple(dout.shape)} {dout.dtype} on {dout.device}")
+    _check_dout("window_attention_bwd", qkv, dout)
+    w, n, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
     with torch.cuda.device(qkv.device):
         groups = _build.kernel("window_attention_bwd_groups", _GROUPS_ARGTYPES)(w, n, heads)
@@ -210,23 +256,105 @@ def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     return dqkv, part.sum(dim=0)
 
 
+def _check_scale(name: str, qkv: torch.Tensor, scale: torch.Tensor, heads: int) -> None:
+    if (scale.shape != (heads,) or scale.dtype != torch.float32 or scale.device != qkv.device
+            or not scale.is_contiguous()):
+        raise ValueError(f"{name}: scale must be a contiguous [{heads}] float32 tensor on "
+                         f"{qkv.device}, got {tuple(scale.shape)} {scale.dtype} on "
+                         f"{scale.device}")
+
+
+def _check_dout(name: str, qkv: torch.Tensor, dout: torch.Tensor) -> None:
+    w, n, three_c = qkv.shape
+    if (dout.shape != (w, n, three_c // 3) or dout.dtype != qkv.dtype
+            or dout.device != qkv.device or not dout.is_contiguous() or dout.data_ptr() % 16):
+        raise ValueError(f"{name}: dout must be a contiguous, 16-byte aligned "
+                         f"[{w}, {n}, {three_c // 3}] {qkv.dtype} tensor on {qkv.device}, got "
+                         f"{tuple(dout.shape)} {dout.dtype} on {dout.device}")
+
+
+@counted("launches")
+def window_attention_cos_fwd(qkv: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
+                             heads: int) -> torch.Tensor:
+    """The cosine form of :func:`window_attention_fwd`: head h's logits are
+    ``scale[h]`` times the cosines of the q and k rows (``scale [H]`` fp32)."""
+    if qkv.device.type == "cpu":
+        return window_attention_reference(qkv, bias, heads, scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"window_attention_cos_fwd: unsupported device {qkv.device}")
+    _check_cuda_args("window_attention_cos_fwd", qkv, bias, heads)
+    _check_scale("window_attention_cos_fwd", qkv, scale, heads)
+    w, n, three_c = qkv.shape
+    out = torch.empty((w, n, three_c // 3), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        fn = _build.kernel("window_attention_cos_fwd", _COS_FWD_ARGTYPES)
+        status = fn(qkv.data_ptr(), bias.data_ptr(), scale.data_ptr(), out.data_ptr(), w, n,
+                    heads, bias.shape[0], torch.cuda.current_stream().cuda_stream)
+    _build.check(status, "window_attention_cos_fwd")
+    window_attention_cos_fwd.launches += 1
+    return out
+
+
+@counted("launches")
+def window_attention_cos_bwd(qkv: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
+                             heads: int, dout: torch.Tensor):
+    """``(dqkv, dbias [H, N, N], dscale [H])`` of :func:`window_attention_cos_fwd`:
+    dqkv the gradient of the raw q, k and v, dbias and dscale fp32, each
+    summed over the windows from per-block partials, as
+    :func:`window_attention_bwd` sums dbias."""
+    if qkv.device.type == "cpu":
+        return window_attention_bwd_reference(qkv, bias, heads, dout, scale)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"window_attention_cos_bwd: unsupported device {qkv.device}")
+    _check_cuda_args("window_attention_cos_bwd", qkv, bias, heads)
+    _check_scale("window_attention_cos_bwd", qkv, scale, heads)
+    _check_dout("window_attention_cos_bwd", qkv, dout)
+    w, n, _ = qkv.shape
+    dqkv = torch.empty_like(qkv)
+    with torch.cuda.device(qkv.device):
+        groups = _build.kernel("window_attention_cos_bwd_groups", _GROUPS_ARGTYPES)(w, n, heads)
+        if groups < 1:
+            raise RuntimeError(f"window_attention_cos_bwd: no launch shape for W={w} N={n} "
+                               f"heads={heads}")
+        part = torch.empty((groups, heads, n, n), dtype=torch.float32, device=qkv.device)
+        scale_part = torch.empty((groups, heads), dtype=torch.float32, device=qkv.device)
+        fn = _build.kernel("window_attention_cos_bwd", _COS_BWD_ARGTYPES)
+        status = fn(qkv.data_ptr(), bias.data_ptr(), scale.data_ptr(), dout.data_ptr(),
+                    dqkv.data_ptr(), part.data_ptr(), scale_part.data_ptr(), w, n, heads,
+                    bias.shape[0], groups, torch.cuda.current_stream().cuda_stream)
+    _build.check(status, "window_attention_cos_bwd")
+    window_attention_cos_bwd.launches += 1
+    return dqkv, part.sum(dim=0), scale_part.sum(dim=0)
+
+
 class WindowAttentionFn(torch.autograd.Function):
-    """``apply(qkv, rel_bias, mask, heads)``: K4-fwd forward, K4-bwd backward.
-    ``rel_bias [H, N, N]`` gets the fp32 sum of ds over the windows; the
-    constant ``mask [nW, N, N]`` (or None) gets none."""
+    """``apply(qkv, rel_bias, mask, heads, scale=None)``: K4-fwd forward, K4-bwd
+    backward. ``rel_bias [H, N, N]`` gets the fp32 sum of ds over the
+    windows; the constant ``mask [nW, N, N]`` (or None) gets none. With
+    ``scale [H]`` (fp32) the cosine form runs, and ``scale`` gets its
+    gradient."""
 
     @staticmethod
-    def forward(ctx, qkv, rel_bias, mask, heads):
+    def forward(ctx, qkv, rel_bias, mask, heads, scale=None):
         bias = combined_bias(rel_bias, mask)
-        ctx.save_for_backward(qkv, bias)
         ctx.heads = heads
-        return window_attention_fwd(qkv, bias, heads)
+        if scale is None:
+            ctx.save_for_backward(qkv, bias)
+            return window_attention_fwd(qkv, bias, heads)
+        scale = scale.float().contiguous()
+        ctx.save_for_backward(qkv, bias, scale)
+        return window_attention_cos_fwd(qkv, bias, scale, heads)
 
     @staticmethod
     def backward(ctx, g):
-        qkv, bias = ctx.saved_tensors
-        dqkv, dbias = window_attention_bwd(qkv, bias, ctx.heads, g.to(qkv.dtype).contiguous())
-        return dqkv, dbias, None, None
+        g = g.to(ctx.saved_tensors[0].dtype).contiguous()
+        if len(ctx.saved_tensors) == 2:
+            qkv, bias = ctx.saved_tensors
+            dqkv, dbias = window_attention_bwd(qkv, bias, ctx.heads, g)
+            return dqkv, dbias, None, None, None
+        qkv, bias, scale = ctx.saved_tensors
+        dqkv, dbias, dscale = window_attention_cos_bwd(qkv, bias, scale, ctx.heads, g)
+        return dqkv, dbias, None, None, dscale
 
 
 def _diagonals(ws: int, device) -> torch.Tensor:

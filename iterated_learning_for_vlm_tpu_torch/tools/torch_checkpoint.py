@@ -13,10 +13,12 @@ params through it unchanged, and this module goes the other way:
 
 The table covers the CLIP tree (``visual``, ``text``, ``logit_scale``) and
 the CLIP-FDT tree (the same, plus ``space_dict``, the query heads and
-``logit_scale_sd``), and a Swin v1 / Swin-MoE ``visual`` tree (flax
+``logit_scale_sd``), and a Swin v1 / Swin-MoE / Swin v2 ``visual`` tree (flax
 ``stage{s}_block{b}`` / ``merge{s}`` modules -> the port's Microsoft-Swin names
 ``layers.{s}.blocks.{b}`` / ``layers.{s}.downsample``; the experts' stacked
-``w1 [E, d, h]``, ``b1``, ``w2``, ``b2`` as they are).
+``w1 [E, d, h]``, ``b1``, ``w2``, ``b2`` as they are; v2's per-head
+``attn/logit_scale [H, 1, 1]`` as it is, its ``attn/cpb_fc{1,2}`` Dense
+layers -> ``attn.cpb_mlp.{0,2}``).
 
 Any tree with the params' structure crosses the same way: gradients, and the
 AdamW ``mu`` / ``nu`` moments. The per-leaf AdamW ``count`` is a scalar per
@@ -107,6 +109,10 @@ _SWIN_BLOCK_MAP = {
     ("moe_mlp", "b1"): "mlp.b1",
     ("moe_mlp", "w2"): "mlp.w2",
     ("moe_mlp", "b2"): "mlp.b2",
+    ("attn", "logit_scale"): "attn.logit_scale",
+    ("attn", "cpb_fc1", "kernel"): "attn.cpb_mlp.0.weight",
+    ("attn", "cpb_fc1", "bias"): "attn.cpb_mlp.0.bias",
+    ("attn", "cpb_fc2", "kernel"): "attn.cpb_mlp.2.weight",
 }
 for _ln in ("norm1", "norm2"):
     _SWIN_BLOCK_MAP[(_ln, "norm", "scale")] = f"{_ln}.weight"

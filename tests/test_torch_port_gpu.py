@@ -1574,12 +1574,172 @@ def test_swin_tower_takes_k4_on_the_card(dev):
         fp32(x)
 
 
+# -- K4's cosine form (Swin V2) --------------------------------------------------------------
+# dqkv and the output as the dot-product form's (WIN_ATOL, WIN_RTOL): both
+# sides round p and ds (times the inverse norms) to bf16 at the same places;
+# at these few windows no rounding of the two parts far enough to pass it
+# (``chip_smoke.py``'s 4096 windows need WIN_COS_ATOL's scaled bound). The
+# scale's gradient sums W N row dot products per head in fp32 in another
+# order (the blocks' strided window sets, then the partials; the plain
+# version's einsum): relative to its norm over the heads, 1e-3.
+WIN_DSCALE_RTOL = 1e-3
+# (images, ws, heads, shifted): N = 144 with 4 heads masked (stage 0), 16
+# heads (stage 2), N = 36 with 32 heads (stage 3)
+K4_COS_SHAPES = [(2, 12, 4, True), (2, 12, 16, False), (4, 6, 32, False)]
+
+
+def _head_scales(dev, heads):
+    """exp(min(logit_scale, ln 100)) for logit scales spread over ln 5 .. ln 30."""
+    return torch.exp(torch.linspace(np.log(5.0), np.log(30.0), heads, device=dev))
+
+
+@pytest.mark.parametrize("images,ws,heads,shifted", K4_COS_SHAPES)
+def test_window_attention_cos_kernel_matches_plain(dev, images, ws, heads, shifted):
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    qkv, _, _, bias, _ = _window_inputs(dev, images, ws, heads, shifted, ws * 10 + heads + 2)
+    scale = _head_scales(dev, heads)
+    before, dot = wa.window_attention_cos_fwd.launches, wa.window_attention_fwd.launches
+    got = wa.window_attention_cos_fwd(qkv, bias, scale, heads)
+    torch.cuda.synchronize()
+    assert wa.window_attention_cos_fwd.launches == before + 1
+    assert wa.window_attention_fwd.launches == dot
+    ref = wa.window_attention_reference(qkv, bias, heads, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    err = (got.float() - ref.float()).abs()
+    assert torch.all(err <= WIN_ATOL + WIN_RTOL * ref.float().abs()), err.max().item()
+
+
+@pytest.mark.parametrize("images,ws,heads,shifted", K4_COS_SHAPES)
+def test_window_attention_cos_bwd_kernel_matches_plain(dev, images, ws, heads, shifted):
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    qkv, _, _, bias, g = _window_inputs(dev, images, ws, heads, shifted, ws * 10 + heads + 3)
+    scale = _head_scales(dev, heads)
+    dout = torch.randn(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3, generator=g,
+                       device=dev).to(torch.bfloat16)
+    before = wa.window_attention_cos_bwd.launches
+    dqkv, dbias, dscale = wa.window_attention_cos_bwd(qkv, bias, scale, heads, dout)
+    torch.cuda.synchronize()
+    assert wa.window_attention_cos_bwd.launches == before + 1
+    ref_dqkv, ref_dbias, ref_dscale = wa.window_attention_bwd_reference(qkv, bias, heads, dout,
+                                                                        scale)
+    err = (dqkv.float() - ref_dqkv.float()).abs()
+    assert torch.all(err <= WIN_ATOL + WIN_RTOL * ref_dqkv.float().abs()), err.max().item()
+    assert dbias.dtype == dscale.dtype == torch.float32 and dscale.shape == (heads,)
+    gap = (dbias - ref_dbias).norm() / ref_dbias.norm()
+    assert gap <= WIN_DBIAS_RTOL, gap.item()
+    gap = (dscale - ref_dscale).norm() / ref_dscale.norm()
+    assert gap <= WIN_DSCALE_RTOL, gap.item()
+    # no float atomics: a second call gives the same bits
+    again = wa.window_attention_cos_bwd(qkv, bias, scale, heads, dout)
+    assert all(torch.equal(a, b) for a, b in zip((dqkv, dbias, dscale), again))
+
+
+def test_window_attention_cos_function_and_scale_grad(dev):
+    """Autograd through the cosine form on the card, from per-head logit
+    scales through the ln 100 clamp (one head above it): dqkv, the table's
+    and the logit scales' gradients against autograd through the plain
+    forward. That backward rounds dp to bf16 (the gradient of the bf16
+    ``p v`` product) where the kernel keeps it in fp32, and at head scales up
+    to 20 the q and k gradients reach ~50, so an element's error follows the
+    size of its terms, not its own: each of dq, dk, dv and the table's
+    gradient within 1% of its norm (0.33% on the CPU), the logit scales',
+    a sum over every window, row and key, within 2% (0.6%)."""
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    ws, heads = 12, 4
+    qkv, _, mask, _, g = _window_inputs(dev, 2, ws, heads, True, 78)
+    table = 0.5 * torch.randn((2 * ws - 1) ** 2, heads, generator=g, device=dev)
+    index = torch.from_numpy(wa.relative_position_index(ws)).to(dev)
+    dout = torch.randn(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3, generator=g,
+                       device=dev).to(torch.bfloat16)
+    logit_scale = torch.tensor([1.6, 2.3, 3.0, 5.0], device=dev)
+    grads = []
+    for kernel in (True, False):
+        x = qkv.clone().requires_grad_()
+        t = table.clone().requires_grad_()
+        ls = logit_scale.clone().requires_grad_()
+        scale = torch.exp(torch.clamp_max(ls, np.log(100.0)))
+        rel = wa.RelativePositionBias.apply(t, index, ws)
+        if kernel:
+            out = wa.WindowAttentionFn.apply(x, rel, mask, heads, scale)
+        else:
+            out = wa.window_attention_reference(x, wa.combined_bias(rel, mask), heads, scale)
+        out.backward(dout)
+        grads.append((x.grad.float(), t.grad, ls.grad))
+    (dx, dt, dls), (rx, rt, rls) = grads
+    for got, want in zip(dx.chunk(3, dim=-1), rx.chunk(3, dim=-1)):
+        assert (got - want).norm() / want.norm() <= 1e-2
+    assert (dt - rt).norm() / rt.norm() <= 1e-2
+    assert dls[3] == 0 and rls[3] == 0 and (dls - rls).norm() / rls.norm() <= 2e-2
+
+
+# The dot-product form's bits on fixed inputs (made on the host, so no device
+# generator enters), as the kernels gave them before the cosine form shared
+# their source: SHA-256 of the forward's output and of the backward's dqkv and
+# dbias at stage 0 (N = 144, 4 heads, masked) and stage 3 (N = 36, 32 heads),
+# read on an H100 80GB HBM3 with CUDA 12.8's nvcc.
+K4_DOT_DIGESTS = {
+    (2, 12, 4, True): "f6e73b8c82cc9d6c64d7f3273c9f90b5fa6de722cc613deefd6fbc5912da18e6",
+    (4, 6, 32, False): "f4a9f70a8c6f5ffdf11adc8928fc7c335b5a6e8f8e4af9656a095bda0a746c2b"}
+
+
+def _k4_dot_digest(dev, images, ws, heads, shifted):
+    import hashlib
+
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    hw = 4 * ws if shifted else 2 * ws
+    nw, n, c = (hw // ws) ** 2, ws * ws, 32 * heads
+    g = torch.Generator().manual_seed(1000 + ws * 10 + heads)
+    qkv = torch.randn(images * nw, n, 3 * c, generator=g).to(torch.bfloat16).to(dev)
+    table = 0.5 * torch.randn((2 * ws - 1) ** 2, heads, generator=g)
+    dout = torch.randn(images * nw, n, c, generator=g).to(torch.bfloat16).to(dev)
+    index = torch.from_numpy(wa.relative_position_index(ws))
+    rel = table[index.reshape(-1)].reshape(n, n, heads).permute(2, 0, 1).to(dev)
+    mask = torch.from_numpy(wa.shift_mask(hw, ws, ws // 2)).to(dev) if shifted else None
+    bias = wa.combined_bias(rel, mask)
+    outs = [wa.window_attention_fwd(qkv, bias, heads),
+            *wa.window_attention_bwd(qkv, bias, heads, dout)]
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("shape", sorted(K4_DOT_DIGESTS))
+def test_window_attention_dot_form_bits_unchanged(dev, shape):
+    assert _k4_dot_digest(dev, *shape) == K4_DOT_DIGESTS[shape]
+
+
+def test_swin_v2_tower_takes_cosine_k4(dev):
+    """A bf16 two-stage Swin V2 tower on the card: every window attention
+    call launches the cosine K4 forward and backward and no dot-product K4;
+    the logit scales and the position-bias MLP get gradients."""
+    from iterated_learning_for_vlm_tpu_torch.models import swin
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    cfg = swin.swin_b_v2(input_resolution=96, window_size=12, depths=(2, 2), num_heads=(4, 8))
+    tower = layers_model.init_module_tree(
+        swin.SwinTransformer(cfg, dtype=torch.bfloat16, device=dev), _gen(3))
+    before = _counts()
+    x = torch.randn(8, 96, 96, 3, generator=_gen(4), device=dev)
+    tower(x)["embed"].float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert _deltas(before) == _moved(window_attention_cos_fwd=4, window_attention_cos_bwd=4)
+    attn = tower.layers[0].blocks[1].attn
+    assert attn.logit_scale.grad.abs().sum() > 0
+    assert attn.cpb_mlp[0].weight.grad.abs().sum() > 0
+
+
 # -- the train step as a CUDA graph (train/step.py) --------------------------------------
 def _step_model(dev, kind):
     """A small bf16 model whose step runs hand-written kernels: the CLIP-FDT of
     ``_small_cfg`` (K2 and K1), a CLIP of its towers (K2), or a CLIP Swin-MoE
     with a 96-px two-stage tower of head width 32 and 4 experts (K4) and the
-    same text tower (K2)."""
+    same text tower (K2), or the CLIP-FDT with a Swin V2 tower of that shape
+    (K4's cosine form, K2 and K1)."""
     cfg = _small_cfg(True)
     towers = {k: v for k, v in cfg["kwargs"].items() if k != "fdt"}
     if kind == "clip":
@@ -1589,6 +1749,11 @@ def _step_model(dev, kind):
                                   "num_heads": [4, 8], "num_experts": 4,
                                   "moe_blocks": [[1], [1]], "embed_dim": 64}
         cfg = {"type": "clip_swinMoE_B", "kwargs": towers}
+    elif kind == "fdtswinv2":
+        cfg["type"] = "clip_fdt_swinB_v2"
+        cfg["kwargs"]["image_encode"] = {"input_resolution": 96, "window_size": 12,
+                                         "depths": [2, 2], "num_heads": [4, 8], "embed_dim": 64}
+        cfg["kwargs"]["fdt"] = dict(cfg["kwargs"]["fdt"], raw_img_ft_dim=256)
     return model_entry(cfg, device=dev, generator=_gen(5))
 
 
@@ -1614,13 +1779,14 @@ def _step_fn(model, kind):
 
     params = dict(model.named_parameters())
     return make_train_step(model, lambda s: 1e-3 * s / (s + 2.0),
-                           optim.build_wd_tree(params, 0.1, {}), is_fdt=kind == "fdt",
+                           optim.build_wd_tree(params, 0.1, {}),
+                           is_fdt=kind in ("fdt", "fdtswinv2"),
                            grad_clip_type="logit_scale_param_value", grad_clip_value=3.0,
                            grad_clip_max_value=6.0)
 
 
 def _step_batches(dev, kind, n):
-    res = 96 if kind == "swinmoe" else 64
+    res = 96 if kind in ("swinmoe", "fdtswinv2") else 64
     g = _gen(7)
     out = []
     for _ in range(n):
@@ -1643,7 +1809,7 @@ def _assert_same_state(a, state_a, b, state_b):
     assert (state_a.step, state_a.hold_codebook) == (state_b.step, state_b.hold_codebook)
 
 
-@pytest.mark.parametrize("kind", ["fdt", "clip", "swinmoe"])
+@pytest.mark.parametrize("kind", ["fdt", "clip", "swinmoe", "fdtswinv2"])
 def test_step_graph_replay_is_the_eager_step(dev, kind):
     """Six steps through one step function (eager, capture, four replays) give
     the parameters, moments, counts and metrics of six eager steps from the
@@ -1759,7 +1925,7 @@ def test_step_graph_takes_a_new_pool_when_all_graphs_are_gone(dev):
     _assert_same_state(b, state_b, b2, state_b2)
 
 
-@pytest.mark.parametrize("kind", ["fdt", "swinmoe"])
+@pytest.mark.parametrize("kind", ["fdt", "swinmoe", "fdtswinv2"])
 def test_step_graph_replay_advances_the_counters(dev, kind):
     """Each of four steps (eager, capture, two replays) advances every kernel
     wrapper's ``.launches`` and the routes' counts by the eager step's
@@ -1778,6 +1944,10 @@ def test_step_graph_replay_advances_the_counters(dev, kind):
     if kind == "fdt":
         want = _moved(tiny_attention_fwd=k2, tiny_attention_bwd=k2, codebook_pool_fwd=2,
                       codebook_pool_bwd_dq=2, codebook_pool_bwd_dsd=2)
+    elif kind == "fdtswinv2":
+        want = _moved(tiny_attention_fwd=k2, tiny_attention_bwd=k2, codebook_pool_fwd=2,
+                      codebook_pool_bwd_dq=2, codebook_pool_bwd_dsd=2,
+                      window_attention_cos_fwd=4, window_attention_cos_bwd=4)
     else:
         want = _moved(tiny_attention_fwd=k2, tiny_attention_bwd=k2, window_attention_fwd=4,
                       window_attention_bwd=4)

@@ -99,4 +99,5 @@ def test_every_counter_is_registered(package, attr):
                     module.__name__:
                 found.append(name)
                 assert (id(obj), attr) in registered, f"{module.__name__}.{name}"
-    assert len(found) == (9 if attr == "launches" else 2), found
+    # K1's three, K3's two, K2's two, K4's two and its cosine form's two
+    assert len(found) == (11 if attr == "launches" else 2), found
