@@ -36,8 +36,10 @@ and depth, bf16, both kernels on, random weights from seed 0),
 3d. window attention: K4-fwd and K4-bwd (dqkv, and the bias's gradient; a
    second call equal bit for bit) against their plain versions at
    Swin-MoE-B's stages at 256 images (stage 0: N=144, 4 heads, shifted,
-   with its 16 windows' masks; stage 2: N=144, 16 heads; stage 3: N=36, 32
-   heads), beside SDPA with each window's bias as its ``attn_mask``; the
+   with its 16 windows' masks; stage 1: N=144, 8 heads, shifted (4 masks)
+   and not; stage 2: N=144, 16 heads; stage 3: N=36, 32 heads), beside SDPA
+   with each window's bias as its ``attn_mask``, with each call's bias
+   slices staged and the walk's reuse (windows x heads over them); the
    same for the cosine form (Swin V2: the scale's gradient too; SDPA over the
    unit rows); then one train step of CLIP Swin-MoE-B from ``configs/clip_swinmoe_b_cc3m.yaml``'s
    model block at 256 pairs, ctx 32 (K4's counters reset just before, read
@@ -717,13 +719,23 @@ def flash_case(dev, name, b, s, h, causal, route="flag"):
 
 
 # -- phase 3d: K4, Swin's window attention, against its plain versions -------
+# Swin-B's stages at 192 px: (name, (windows an image, ws, heads, shifted))
+K4_STAGES = [(f"stage 0 B={BATCH} N=144 H=4 shifted", (16, 12, 4, True)),
+             (f"stage 1 B={BATCH} N=144 H=8 shifted", (4, 12, 8, True)),
+             (f"stage 1 B={BATCH} N=144 H=8", (4, 12, 8, False)),
+             (f"stage 2 B={BATCH} N=144 H=16", (1, 12, 16, False)),
+             (f"stage 3 B={BATCH} N=36 H=32", (1, 6, 32, False))]
+
+
 def window_case(dev, name, nw, ws, heads, shifted, cosine=False):
     """K4-fwd and K4-bwd (dqkv and the bias's gradient) against their plain
     versions at one stage of Swin-B at ``BATCH`` images: ``nw`` windows of
     ws x ws tokens an image, head width 32, the bias of a random
     relative-position table plus, when ``shifted``, the shift mask. With
     ``cosine``, the cosine form (Swin V2) at head scales 5 .. 30, and the
-    scale's gradient too. Returns the forward and the backward rows."""
+    scale's gradient too. Each row also gives the bias slices a call staged
+    (``.stagings``) and the walk's reuse, windows x heads over them. Returns
+    the forward and the backward rows."""
     from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
 
     g = torch.Generator(device=dev).manual_seed(ws * 100 + heads)
@@ -752,6 +764,7 @@ def window_case(dev, name, nw, ws, heads, shifted, cosine=False):
     del per_window
     if cosine:
         label = "window_attention_cos"
+        counted = wa.window_attention_cos_fwd, wa.window_attention_cos_bwd
 
         def kernel_fwd():
             return wa.window_attention_cos_fwd(qkv, bias, scale, heads)
@@ -760,6 +773,7 @@ def window_case(dev, name, nw, ws, heads, shifted, cosine=False):
             return wa.window_attention_cos_bwd(qkv, bias, scale, heads, dout)
     else:
         label = "window_attention"
+        counted = wa.window_attention_fwd, wa.window_attention_bwd
 
         def kernel_fwd():
             return wa.window_attention_fwd(qkv, bias, heads)
@@ -773,22 +787,27 @@ def window_case(dev, name, nw, ws, heads, shifted, cosine=False):
     def plain_bwd():
         return wa.window_attention_bwd_reference(qkv, bias, heads, dout, scale)
 
+    staged = counted[0].stagings
     got = kernel_fwd()
+    staged = counted[0].stagings - staged
     ref = plain_fwd()
     torch.cuda.synchronize()
     err = (got.float() - ref.float()).abs()
     ok = bool(torch.all(err <= WIN_ATOL + WIN_RTOL * ref.float().abs()))
     fwd = {"case": name, "max_abs_err": err.max().item(), "atol": WIN_ATOL, "rtol": WIN_RTOL,
-           "within_tol": ok}
+           "within_tol": ok, "stagings": staged, "reuse": w * heads / staged}
     fwd["bound_ms"], fwd["bound_by"] = bound_ms(nbytes(qkv, bias, scale, got),
                                                 2.0 * 2 * w * heads * n * n * 32)
     del got, ref, err
     timed_row(fwd, plain_fwd, kernel_fwd, lib_fwd)
     log(f"kernel {label}_fwd {name}: max_abs_err={fwd['max_abs_err']:.3e} "
-        f"(tol {WIN_ATOL} + {WIN_RTOL}*|ref|) ok={ok} {timing_text(fwd)}")
+        f"(tol {WIN_ATOL} + {WIN_RTOL}*|ref|) ok={ok} {timing_text(fwd)} "
+        f"reuse={fwd['reuse']:.2f} ({staged} stagings)")
     check(ok, f"{label}_fwd {name} disagrees with window_attention_reference")
 
+    staged = counted[1].stagings
     got, want, again = kernel_bwd(), plain_bwd(), kernel_bwd()
+    staged = (counted[1].stagings - staged) // 2
     torch.cuda.synchronize()
     err = (got[0].float() - want[0].float()).abs()
     atol = torch.full((3 * c,), WIN_ATOL, device=dev)
@@ -799,7 +818,7 @@ def window_case(dev, name, nw, ws, heads, shifted, cosine=False):
     repeat = all(torch.equal(a, b) for a, b in zip(got, again))
     bwd = {"case": name, "max_abs_err": err.max().item(), "atol": WIN_ATOL, "rtol": WIN_RTOL,
            "within_tol": ok, "dbias_rel_err": gaps[0], "dbias_rtol": WIN_DBIAS_RTOL,
-           "repeats_bit_for_bit": repeat}
+           "repeats_bit_for_bit": repeat, "stagings": staged, "reuse": w * heads / staged}
     ok = ok and gaps[0] <= WIN_DBIAS_RTOL and repeat
     if cosine:
         bwd.update(dscale_rel_err=gaps[1], dscale_rtol=WIN_DSCALE_RTOL)
@@ -813,7 +832,7 @@ def window_case(dev, name, nw, ws, heads, shifted, cosine=False):
         f"|diff|/|ref| of dbias, dscale "
         f"{', '.join(f'{x:.3e}' for x in gaps)} (tol {WIN_DBIAS_RTOL}, {WIN_DSCALE_RTOL}); "
         f"a second call equal bit for bit: {repeat}; ok={ok} {timing_text(bwd)} "
-        f"(library: forward + backward)")
+        f"(library: forward + backward) reuse={bwd['reuse']:.2f} ({staged} stagings)")
     check(ok, f"{label}_bwd {name} disagrees with window_attention_bwd_reference")
     return fwd, bwd
 
@@ -3048,15 +3067,11 @@ def main() -> int:
 
     # 3d. K4 against its plain versions at Swin-MoE-B's stages, then its
     # launches in a Swin-MoE train step
-    k4 = [window_case(dev, f"stage 0 B={BATCH} N=144 H=4 shifted", 16, 12, 4, True),
-          window_case(dev, f"stage 2 B={BATCH} N=144 H=16", 1, 12, 16, False),
-          window_case(dev, f"stage 3 B={BATCH} N=36 H=32", 1, 6, 32, False)]
+    k4 = [window_case(dev, name, *shape) for name, shape in K4_STAGES]
     k4f, k4b = [r[0] for r in k4], [r[1] for r in k4]
     report["kernel_checks"].update({"window_attention_fwd": k4f, "window_attention_bwd": k4b})
     # and its cosine form at Swin V2-B's stages
-    k4c = [window_case(dev, f"stage 0 B={BATCH} N=144 H=4 shifted", 16, 12, 4, True, True),
-           window_case(dev, f"stage 2 B={BATCH} N=144 H=16", 1, 12, 16, False, True),
-           window_case(dev, f"stage 3 B={BATCH} N=36 H=32", 1, 6, 32, False, True)]
+    k4c = [window_case(dev, name, *shape, True) for name, shape in K4_STAGES]
     report["kernel_checks"].update({"window_attention_cos_fwd": [r[0] for r in k4c],
                                     "window_attention_cos_bwd": [r[1] for r in k4c]})
     gc.collect()

@@ -21,13 +21,18 @@ shift mask (-100 across a cyclic-shift seam).
 - :func:`window_attention_fwd` / :func:`window_attention_bwd` are the kernel
   wrappers: a CPU tensor takes the plain version, a CUDA tensor launches
   ``csrc/window_attention_{fwd,bwd}.cu`` or raises. Each counts its launches
-  in ``.launches``.
+  in ``.launches`` and the bias slices its launches staged in ``.stagings``.
+- :func:`walk_plan` partitions a launch's windows among its blocks: a block
+  owns one head and one bias slice (``w % nbias``), stages that slice once
+  and walks its windows (:func:`block_windows`); windows x heads over
+  ``.stagings`` is the walk's reuse of a staged slice.
 - The cosine form (Swin V2): given ``scale [H]`` (fp32, on the device), the
   logits are ``scale[h] * cos(q_i, k_j)`` in place of ``q_i . k_j / sqrt(32)``,
   the rows normalised as ``q / (|q| + 1e-12)``. Its wrappers
   :func:`window_attention_cos_fwd` / :func:`window_attention_cos_bwd` launch
-  the kernels' cosine entries and count in their own ``.launches``; the
-  backward also gives the scale's gradient, summed over the windows.
+  the kernels' cosine entries and count in their own ``.launches`` and
+  ``.stagings``; the backward also gives the scale's gradient, summed over
+  the windows.
 - :class:`WindowAttentionFn` is the ``autograd.Function`` over them;
   :class:`RelativePositionBias` gathers the ``[H, N, N]`` bias from the
   ``[(2 ws - 1)^2, H]`` table and reduces its gradient back onto the table
@@ -37,7 +42,8 @@ shift mask (-100 across a cyclic-shift seam).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -175,15 +181,71 @@ def window_attention_bwd_reference(qkv: torch.Tensor, bias: torch.Tensor, heads:
     return dqkv, ds.sum(dim=0), dot[..., 0].sum(dim=(0, 1))
 
 
-# (qkv, bias, out), (windows, n, heads, nbias), scale, stream
-_FWD_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (ctypes.c_float, ctypes.c_void_p)
-# (qkv, bias, dout, dqkv, dbias_part), (windows, n, heads, nbias, groups), scale, stream
+class WalkPlan(NamedTuple):
+    """How a K4 launch's blocks walk its windows."""
+    per: int     # blocks of each (bias slice, head)
+    blocks: int  # blocks of the launch, nbias * per * heads: the bias slices it stages
+    walk: int    # the most windows a block walks
+
+
+def walk_plan(windows: int, heads: int, nbias: int, sms: int, per_sm: int) -> WalkPlan:
+    """The blocks of a launch over ``windows`` windows of ``heads`` heads,
+    window w taking bias slice ``w % nbias``, on a card of ``sms`` SMs that
+    each hold ``per_sm`` of the kernel's blocks at once. Each (slice, head)
+    gets an equal share of the blocks the card holds, at least one; its
+    windows go to them as evenly as they divide, and the fewest blocks that
+    keep the longest walk that short take them. So a launch that fits the
+    card takes one window a block."""
+    if min(windows, heads, nbias, sms, per_sm) < 1 or windows % nbias:
+        raise ValueError(f"walk_plan: no plan for windows={windows} heads={heads} "
+                         f"nbias={nbias} sms={sms} per_sm={per_sm}")
+    slice_windows = windows // nbias
+    room = max(1, sms * per_sm // (nbias * heads))
+    walk = -(-slice_windows // min(room, slice_windows))
+    per = -(-slice_windows // walk)
+    return WalkPlan(per, nbias * per * heads, walk)
+
+
+def block_windows(block: int, windows: int, nbias: int, per: int) -> List[int]:
+    """The windows block ``block`` (its index along the launch's first axis)
+    walks, in the kernels' order (``window_attention.cuh`` ``walk_window``):
+    the bias slice ``s = block % nbias``'s windows ``s + nbias k`` for
+    ``k = block // nbias, + per, ...``. The block's partial of the bias
+    gradient sits at ``block`` along the first axis."""
+    first, s = divmod(block, nbias)
+    return [s + nbias * k for k in range(first, windows // nbias, per)]
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(entry: str, n: int, cosine: bool, device: int) -> Tuple[int, int]:
+    """(SMs, blocks an SM holds) of a K4 kernel at N = n on ``device``."""
+    per_sm = _build.kernel(entry, _OCCUPANCY_ARGTYPES)(n, int(cosine))
+    if per_sm < 1:
+        raise RuntimeError(f"{entry}: no launch shape for N={n}")
+    return torch.cuda.get_device_properties(device).multi_processor_count, per_sm
+
+
+def launch_plan(kind: str, qkv: torch.Tensor, bias: torch.Tensor, heads: int,
+                cosine: bool) -> WalkPlan:
+    """The walk of a ``kind`` (``"fwd"`` or ``"bwd"``) launch over ``qkv`` on
+    its card, from what the card reports."""
+    w, n, _ = qkv.shape
+    sms, per_sm = _occupancy(f"window_attention_{kind}_blocks_per_sm", n, cosine,
+                             qkv.device.index if qkv.device.index is not None
+                             else torch.cuda.current_device())
+    return walk_plan(w, heads, bias.shape[0], sms, per_sm)
+
+
+# (qkv, bias, out), (windows, n, heads, nbias, per), scale, stream
+_FWD_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 5 + (ctypes.c_float, ctypes.c_void_p)
+# (qkv, bias, dout, dqkv, dbias_part), (windows, n, heads, nbias, per), scale, stream
 _BWD_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_float, ctypes.c_void_p)
-_GROUPS_ARGTYPES = (ctypes.c_int,) * 3
-# (qkv, bias, scales, out), (windows, n, heads, nbias), stream
-_COS_FWD_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
+# n, cosine
+_OCCUPANCY_ARGTYPES = (ctypes.c_int,) * 2
+# (qkv, bias, scales, out), (windows, n, heads, nbias, per), stream
+_COS_FWD_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 # (qkv, bias, scales, dout, dqkv, dbias_part, dscale_part),
-# (windows, n, heads, nbias, groups), stream
+# (windows, n, heads, nbias, per), stream
 _COS_BWD_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 
 
@@ -205,6 +267,7 @@ def _check_cuda_args(name: str, qkv: torch.Tensor, bias: torch.Tensor, heads: in
                          f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
 
 
+@counted("stagings")
 @counted("launches")
 def window_attention_fwd(qkv: torch.Tensor, bias: torch.Tensor, heads: int) -> torch.Tensor:
     """Attention over each window of ``qkv [W, N, 3C]`` with the fp32 additive
@@ -218,20 +281,24 @@ def window_attention_fwd(qkv: torch.Tensor, bias: torch.Tensor, heads: int) -> t
     w, n, three_c = qkv.shape
     out = torch.empty((w, n, three_c // 3), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
+        plan = launch_plan("fwd", qkv, bias, heads, cosine=False)
         fn = _build.kernel("window_attention_fwd", _FWD_ARGTYPES)
         status = fn(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), w, n, heads,
-                    bias.shape[0], HEAD_DIM ** -0.5, torch.cuda.current_stream().cuda_stream)
+                    bias.shape[0], plan.per, HEAD_DIM ** -0.5,
+                    torch.cuda.current_stream().cuda_stream)
     _build.check(status, "window_attention_fwd")
     window_attention_fwd.launches += 1
+    window_attention_fwd.stagings += plan.blocks
     return out
 
 
+@counted("stagings")
 @counted("launches")
 def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
                          dout: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dqkv [W, N, 3C], dbias [H, N, N] fp32)`` of :func:`window_attention_fwd`
     for the output gradient ``dout [W, N, C]``. On the card each block sums
-    its windows' ds in a fixed order and writes one ``[H, N, N]`` partial; the
+    its windows' ds in a fixed order and writes one ``[N, N]`` partial; the
     partials are summed here, so two calls agree bit for bit."""
     if qkv.device.type == "cpu":
         return window_attention_bwd_reference(qkv, bias, heads, dout)
@@ -241,18 +308,18 @@ def window_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, heads: int,
     _check_dout("window_attention_bwd", qkv, dout)
     w, n, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
+    nbias = bias.shape[0]
     with torch.cuda.device(qkv.device):
-        groups = _build.kernel("window_attention_bwd_groups", _GROUPS_ARGTYPES)(w, n, heads)
-        if groups < 1:
-            raise RuntimeError(f"window_attention_bwd: no launch shape for W={w} N={n} "
-                               f"heads={heads}")
-        part = torch.empty((groups, heads, n, n), dtype=torch.float32, device=qkv.device)
+        plan = launch_plan("bwd", qkv, bias, heads, cosine=False)
+        part = torch.empty((nbias * plan.per, heads, n, n), dtype=torch.float32,
+                           device=qkv.device)
         fn = _build.kernel("window_attention_bwd", _BWD_ARGTYPES)
         status = fn(qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-                    part.data_ptr(), w, n, heads, bias.shape[0], groups, HEAD_DIM ** -0.5,
+                    part.data_ptr(), w, n, heads, nbias, plan.per, HEAD_DIM ** -0.5,
                     torch.cuda.current_stream().cuda_stream)
     _build.check(status, "window_attention_bwd")
     window_attention_bwd.launches += 1
+    window_attention_bwd.stagings += plan.blocks
     return dqkv, part.sum(dim=0)
 
 
@@ -273,6 +340,7 @@ def _check_dout(name: str, qkv: torch.Tensor, dout: torch.Tensor) -> None:
                          f"{tuple(dout.shape)} {dout.dtype} on {dout.device}")
 
 
+@counted("stagings")
 @counted("launches")
 def window_attention_cos_fwd(qkv: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
                              heads: int) -> torch.Tensor:
@@ -287,14 +355,17 @@ def window_attention_cos_fwd(qkv: torch.Tensor, bias: torch.Tensor, scale: torch
     w, n, three_c = qkv.shape
     out = torch.empty((w, n, three_c // 3), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
+        plan = launch_plan("fwd", qkv, bias, heads, cosine=True)
         fn = _build.kernel("window_attention_cos_fwd", _COS_FWD_ARGTYPES)
         status = fn(qkv.data_ptr(), bias.data_ptr(), scale.data_ptr(), out.data_ptr(), w, n,
-                    heads, bias.shape[0], torch.cuda.current_stream().cuda_stream)
+                    heads, bias.shape[0], plan.per, torch.cuda.current_stream().cuda_stream)
     _build.check(status, "window_attention_cos_fwd")
     window_attention_cos_fwd.launches += 1
+    window_attention_cos_fwd.stagings += plan.blocks
     return out
 
 
+@counted("stagings")
 @counted("launches")
 def window_attention_cos_bwd(qkv: torch.Tensor, bias: torch.Tensor, scale: torch.Tensor,
                              heads: int, dout: torch.Tensor):
@@ -311,19 +382,20 @@ def window_attention_cos_bwd(qkv: torch.Tensor, bias: torch.Tensor, scale: torch
     _check_dout("window_attention_cos_bwd", qkv, dout)
     w, n, _ = qkv.shape
     dqkv = torch.empty_like(qkv)
+    nbias = bias.shape[0]
     with torch.cuda.device(qkv.device):
-        groups = _build.kernel("window_attention_cos_bwd_groups", _GROUPS_ARGTYPES)(w, n, heads)
-        if groups < 1:
-            raise RuntimeError(f"window_attention_cos_bwd: no launch shape for W={w} N={n} "
-                               f"heads={heads}")
-        part = torch.empty((groups, heads, n, n), dtype=torch.float32, device=qkv.device)
-        scale_part = torch.empty((groups, heads), dtype=torch.float32, device=qkv.device)
+        plan = launch_plan("bwd", qkv, bias, heads, cosine=True)
+        part = torch.empty((nbias * plan.per, heads, n, n), dtype=torch.float32,
+                           device=qkv.device)
+        scale_part = torch.empty((nbias * plan.per, heads), dtype=torch.float32,
+                                 device=qkv.device)
         fn = _build.kernel("window_attention_cos_bwd", _COS_BWD_ARGTYPES)
         status = fn(qkv.data_ptr(), bias.data_ptr(), scale.data_ptr(), dout.data_ptr(),
                     dqkv.data_ptr(), part.data_ptr(), scale_part.data_ptr(), w, n, heads,
-                    bias.shape[0], groups, torch.cuda.current_stream().cuda_stream)
+                    nbias, plan.per, torch.cuda.current_stream().cuda_stream)
     _build.check(status, "window_attention_cos_bwd")
     window_attention_cos_bwd.launches += 1
+    window_attention_cos_bwd.stagings += plan.blocks
     return dqkv, part.sum(dim=0), scale_part.sum(dim=0)
 
 

@@ -764,8 +764,10 @@ def _counts():
 
 
 def _deltas(before):
-    """The counters that moved since ``before``, by how much."""
-    return {k: v - before[k] for k, v in _counts().items() if v != before[k]}
+    """The launch and refusal counters that moved since ``before``, by how
+    much (K4's ``.stagings`` follow its launch plan: the walk tests hold them)."""
+    return {k: v - before[k] for k, v in _counts().items()
+            if v != before[k] and not k.endswith(".stagings")}
 
 
 def _moved(**by_name):
@@ -1673,6 +1675,134 @@ def test_window_attention_cos_function_and_scale_grad(dev):
         assert (got - want).norm() / want.norm() <= 1e-2
     assert (dt - rt).norm() / rt.norm() <= 1e-2
     assert dls[3] == 0 and rls[3] == 0 and (dls - rls).norm() / rls.norm() <= 2e-2
+
+
+# -- K4's window walk -----------------------------------------------------------------------
+# (images, ws, heads, shifted) where a block walks many windows on an H100:
+# N = 144 unshifted with 16 heads and 64 windows (stage 2's shape, 8 windows
+# a block), N = 144 shifted with 4 heads, 16 bias slices and 256 windows
+# (stage 0's, 8 a block), and 68 windows of N = 144 with 16 heads, which the
+# 8 blocks of a head share unevenly (9 or 8 each).
+K4_WALK_SHAPES = [(16, 12, 16, False), (16, 12, 4, True), (17, 12, 16, False)]
+
+
+def _k4_launch(kind, qkv, bias, heads, per, scale=None, dout=None):
+    """One launch of a K4 entry (``kind`` "fwd" or "bwd"; the cosine form's
+    with ``scale``) with ``per`` blocks a (bias slice, head), as the wrappers
+    launch their plan's: the forward's output, or (dqkv, dbias[, dscale])."""
+    from iterated_learning_for_vlm_tpu_torch.ops import _build
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    w, n, three_c = qkv.shape
+    nbias, cos = bias.shape[0], scale is not None
+    stream = torch.cuda.current_stream().cuda_stream
+    sizes = (w, n, heads, nbias, per)
+    if kind == "fwd":
+        out = torch.empty((w, n, three_c // 3), dtype=qkv.dtype, device=qkv.device)
+        if cos:
+            status = _build.kernel("window_attention_cos_fwd", wa._COS_FWD_ARGTYPES)(
+                qkv.data_ptr(), bias.data_ptr(), scale.data_ptr(), out.data_ptr(), *sizes, stream)
+        else:
+            status = _build.kernel("window_attention_fwd", wa._FWD_ARGTYPES)(
+                qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), *sizes, wa.HEAD_DIM ** -0.5,
+                stream)
+        _build.check(status, "window_attention_fwd")
+        return out
+    dqkv = torch.empty_like(qkv)
+    part = torch.empty((nbias * per, heads, n, n), dtype=torch.float32, device=qkv.device)
+    if cos:
+        scale_part = torch.empty((nbias * per, heads), dtype=torch.float32, device=qkv.device)
+        status = _build.kernel("window_attention_cos_bwd", wa._COS_BWD_ARGTYPES)(
+            qkv.data_ptr(), bias.data_ptr(), scale.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+            part.data_ptr(), scale_part.data_ptr(), *sizes, stream)
+        _build.check(status, "window_attention_cos_bwd")
+        return dqkv, part.sum(dim=0), scale_part.sum(dim=0)
+    status = _build.kernel("window_attention_bwd", wa._BWD_ARGTYPES)(
+        qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), part.data_ptr(),
+        *sizes, wa.HEAD_DIM ** -0.5, stream)
+    _build.check(status, "window_attention_bwd")
+    return dqkv, part.sum(dim=0)
+
+
+@pytest.mark.parametrize("form", ["dot", "cosine"])
+@pytest.mark.parametrize("images,ws,heads,shifted", K4_WALK_SHAPES)
+def test_window_attention_walk(dev, images, ws, heads, shifted, form):
+    """Blocks that walk many windows: K4-fwd and K4-bwd against their plain
+    versions; two calls give the same bits, the bias's (and the scale's)
+    gradient included; the forward's output and dqkv are the bits of a plan
+    with a window a block; ``.stagings`` advances by the plan's blocks, in a
+    CUDA graph's replay too. The cosine form's dq and dk carry each head's
+    scale (5 .. 30), and the two sides' roundings of ds times the inverse
+    norms part where their fp32 ds differ by an ulp: their absolute tolerance
+    is WIN_ATOL times the scale, as ``chip_smoke.py`` phase 3d's."""
+    from iterated_learning_for_vlm_tpu_torch.ops import graphs
+    from iterated_learning_for_vlm_tpu_torch.ops import window_attention as wa
+
+    cos = form == "cosine"
+    qkv, _, _, bias, g = _window_inputs(dev, images, ws, heads, shifted, 900 + ws * 10 + heads)
+    dout = torch.randn(qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3, generator=g,
+                       device=dev).to(torch.bfloat16)
+    scale = _head_scales(dev, heads) if cos else None
+    fwd, bwd = ((wa.window_attention_cos_fwd, wa.window_attention_cos_bwd) if cos
+                else (wa.window_attention_fwd, wa.window_attention_bwd))
+
+    def call(inputs):
+        x = inputs["qkv"]
+        if cos:
+            return {"out": fwd(x, bias, scale, heads),
+                    "grads": bwd(x, bias, scale, heads, dout)}
+        return {"out": fwd(x, bias, heads), "grads": bwd(x, bias, heads, dout)}
+
+    w, nbias, c = qkv.shape[0], bias.shape[0], 32 * heads
+    plans = [wa.launch_plan(kind, qkv, bias, heads, cos) for kind in ("fwd", "bwd")]
+    assert all(plan.walk > 1 for plan in plans), plans
+    if images == 17:
+        assert (w // nbias) % plans[1].per, plans
+    before = [fwd.launches, fwd.stagings, bwd.launches, bwd.stagings]
+    got = call({"qkv": qkv})
+    torch.cuda.synchronize()
+    assert [fwd.launches, fwd.stagings, bwd.launches, bwd.stagings] == [
+        before[0] + 1, before[1] + plans[0].blocks, before[2] + 1, before[3] + plans[1].blocks]
+
+    ref = wa.window_attention_reference(qkv, bias, heads, scale)
+    err = (got["out"].float() - ref.float()).abs()
+    assert torch.all(err <= WIN_ATOL + WIN_RTOL * ref.float().abs()), err.max().item()
+    want = wa.window_attention_bwd_reference(qkv, bias, heads, dout, scale)
+    atol = torch.full((3 * c,), WIN_ATOL, device=dev)
+    if cos:
+        atol[:2 * c] = WIN_ATOL * scale.clamp_min(1.0).repeat_interleave(32).repeat(2)
+    err = (got["grads"][0].float() - want[0].float()).abs()
+    assert torch.all(err <= atol + WIN_RTOL * want[0].float().abs()), err.max().item()
+    gap = (got["grads"][1] - want[1]).norm() / want[1].norm()
+    assert gap <= WIN_DBIAS_RTOL, gap.item()
+    if cos:
+        gap = (got["grads"][2] - want[2]).norm() / want[2].norm()
+        assert gap <= WIN_DSCALE_RTOL, gap.item()
+    del ref, want, err
+
+    # no float atomics: a second call gives the same bits
+    again = call({"qkv": qkv})
+    assert torch.equal(got["out"], again["out"])
+    assert all(torch.equal(a, b) for a, b in zip(got["grads"], again["grads"]))
+    # a window a block: the same output and dqkv
+    one = w // nbias
+    assert torch.equal(got["out"], _k4_launch("fwd", qkv, bias, heads, one, scale))
+    assert torch.equal(got["grads"][0], _k4_launch("bwd", qkv, bias, heads, one, scale, dout)[0])
+    # a replay advances .stagings as its capture's launches did (eager,
+    # capture, replay), and gives the same bits
+    def graphed(inputs):
+        res = call(inputs)
+        return {"out": res["out"], "dqkv": res["grads"][0]}
+
+    cache = graphs.GraphCache()
+    for _ in range(3):
+        before = [fwd.stagings, bwd.stagings]
+        out = cache(graphed, {"qkv": qkv}, "walk")
+        torch.cuda.synchronize()
+        assert [fwd.stagings - before[0], bwd.stagings - before[1]] == [
+            plans[0].blocks, plans[1].blocks]
+        assert torch.equal(out["out"], got["out"]) and torch.equal(out["dqkv"], got["grads"][0])
+    assert (cache.eager, cache.captures, cache.replays) == (1, 1, 1)
 
 
 # The dot-product form's bits on fixed inputs (made on the host, so no device

@@ -85,11 +85,13 @@ def test_cpu_inputs_run_eagerly_on_the_current_stream():
     assert not cache.captured("key")
 
 
-@pytest.mark.parametrize("package,attr", [(ops_pkg, "launches"), (models_pkg, "plain_routes")])
+@pytest.mark.parametrize("package,attr", [(ops_pkg, "launches"), (models_pkg, "plain_routes"),
+                                          (ops_pkg, "stagings")])
 def test_every_counter_is_registered(package, attr):
-    """Every function of ``ops/*.py`` with ``.launches`` and every route of
-    ``models/*.py`` with ``.plain_routes`` is in the registry, so a replay
-    advances it; a counter set by hand would misread its kernel's roofline."""
+    """Every function of ``ops/*.py`` with ``.launches`` (or K4's
+    ``.stagings``) and every route of ``models/*.py`` with ``.plain_routes``
+    is in the registry, so a replay advances it; a counter set by hand would
+    misread its kernel's roofline."""
     registered = {(id(obj), a) for obj, a in graphs.COUNTERS}
     found = []
     for info in pkgutil.iter_modules(package.__path__):
@@ -99,5 +101,6 @@ def test_every_counter_is_registered(package, attr):
                     module.__name__:
                 found.append(name)
                 assert (id(obj), attr) in registered, f"{module.__name__}.{name}"
-    # K1's three, K3's two, K2's two, K4's two and its cosine form's two
-    assert len(found) == (11 if attr == "launches" else 2), found
+    # launches: K1's three, K3's two, K2's two, K4's two and its cosine form's
+    # two; stagings: K4's four
+    assert len(found) == {"launches": 11, "plain_routes": 2, "stagings": 4}[attr], found

@@ -229,6 +229,60 @@ def test_shift_mask_and_index_match_jax():
     np.testing.assert_array_equal(wa.relative_position_index(WS), want)
 
 
+# -- K4's walk plan: which windows each block of a launch walks --------------
+# (windows, heads, nbias, SMs, blocks an SM holds). Swin-B at 192 px and 256
+# images on an H100's 132 SMs, one K4 block an SM at N = 144 (stage 0
+# shifted, stage 1 shifted and not, stage 2) and 4 or 6 at N = 36 (stage 3);
+# the GPU tests' walking shapes (68 windows: the blocks of a head share them
+# unevenly); launches the card holds whole (the digest shapes); a card
+# smaller than a (slice, head) each.
+WALK_CASES = [(4096, 4, 16, 132, 1), (1024, 8, 4, 132, 1), (1024, 8, 1, 132, 1),
+              (256, 16, 1, 132, 1), (256, 32, 1, 132, 6), (256, 32, 1, 132, 4),
+              (64, 16, 1, 132, 1), (256, 4, 16, 132, 1), (68, 16, 1, 132, 1),
+              (32, 4, 16, 132, 1), (16, 32, 1, 132, 4), (12, 2, 4, 2, 1), (7, 3, 1, 5, 2)]
+
+
+@pytest.mark.parametrize("windows,heads,nbias,sms,per_sm", WALK_CASES)
+def test_walk_plan_covers_every_window_once(windows, heads, nbias, sms, per_sm):
+    """Every (window, head) lands in exactly one block; a block's windows
+    share one bias slice (``w % nbias``, the block's own) and ascend; no
+    block walks more than the plan's longest walk; a launch the card holds
+    whole takes one window a block, a larger one at most the blocks the card
+    holds (or one a (slice, head))."""
+    plan = wa.walk_plan(windows, heads, nbias, sms, per_sm)
+    assert plan.blocks == nbias * plan.per * heads
+    seen = []
+    for block in range(nbias * plan.per):  # a block of each head walks the same windows
+        walked = wa.block_windows(block, windows, nbias, plan.per)
+        assert 1 <= len(walked) <= plan.walk and walked == sorted(walked)
+        assert {w % nbias for w in walked} == {block % nbias}
+        seen += walked
+    assert sorted(seen) == list(range(windows))
+    assert max(len(wa.block_windows(b, windows, nbias, plan.per))
+               for b in range(nbias * plan.per)) == plan.walk
+    if windows * heads <= sms * per_sm:
+        assert plan.walk == 1 and plan.blocks == windows * heads
+    else:
+        assert plan.walk > 1 and plan.blocks <= max(sms * per_sm, nbias * heads)
+
+
+@pytest.mark.parametrize("windows,heads,nbias,sms,per_sm,want", [
+    (4096, 4, 16, 132, 1, (2, 128, 128)), (1024, 8, 4, 132, 1, (4, 128, 64)),
+    (1024, 8, 1, 132, 1, (16, 128, 64)), (256, 16, 1, 132, 1, (8, 128, 32)),
+    (256, 32, 1, 132, 6, (24, 768, 11)), (68, 16, 1, 132, 1, (8, 128, 9))])
+def test_walk_plan_at_the_swin_b_stages(windows, heads, nbias, sms, per_sm, want):
+    """The plans at Swin-B's stages on an H100 (``WALK_CASES``): per, blocks
+    and the longest walk; at N = 144 the blocks fill 128 of the 132 SMs."""
+    assert tuple(wa.walk_plan(windows, heads, nbias, sms, per_sm)) == want
+
+
+@pytest.mark.parametrize("args", [(10, 2, 3, 132, 1), (0, 2, 1, 132, 1), (8, 2, 1, 132, 0)])
+def test_walk_plan_refuses_what_no_launch_takes(args):
+    """nbias must divide the windows; every count is at least 1."""
+    with pytest.raises(ValueError, match="walk_plan"):
+        wa.walk_plan(*args)
+
+
 def test_window_attention_function_matches_autograd():
     """The kernels' autograd path with their plain versions (what a CPU tensor
     takes): ``WindowAttentionFn`` and the table's gradient by diagonal sums
